@@ -8,9 +8,11 @@ keyframe-major flat list (obs_kf == repeat(arange(P), N)), so the pose
 blocks are reshape-sums and the landmark blocks come from
 ops/kernels.lba_landmark_blocks: the CUDA kernel for CUDA tensors, for any L
 and N (the JAX package routes to its Pallas kernel only when L % 256 == 0
-and N % 128 == 0), its plain version on the CPU. The kernel's fixed-order
-reduction plan is built once per solve, since the ids never change across
-LM iterations.
+and N % 128 == 0), its plain version on the CPU, with which the kernel
+agrees within rtol/atol 1e-5 (another summation order; two launches are
+bitwise equal). The kernel's fixed-order reduction plan (kernels.lba_plan,
+built on the device without a sort) is made once per solve, since the ids
+never change across LM iterations.
 
 The JAX package runs the LM iterations in a while_loop that stops once an
 accepted step barely moves; here the loop runs `iters` times and freezes

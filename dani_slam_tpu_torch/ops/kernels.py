@@ -3,13 +3,35 @@
 
   window_match_topk2   <- pallas_kernels.window_match_topk2 (csrc/window_match.cu)
   lba_landmark_blocks  <- pallas_kernels.lba_landmark_blocks (csrc/lba_blocks.cu)
+  lba_plan             the fixed-order reduction plan of lba_landmark_blocks,
+                       built on the device without a sort (csrc/lba_blocks.cu)
+
+window_match_topk2 is bound by operations on an H100 (1.6 GFLOP of bf16
+products against 4 MB at the main-path shape), so its dot runs on the tensor
+cores: the targets are rounded to bf16 once per call into the shared-memory
+image of each 128-column tile, a block of two warpgroups keeps 64 query rows
+resident in bf16 and sweeps the tiles through a two-stage ring filled by bulk
+asynchronous copies on mbarriers, `wgmma` accumulates in f32 registers, and
+the masking, the row top-2 and the column winners happen in registers. The
+tensor cores add the 256 exact products in another order (and may truncate)
+than the plain version's ascending-k sum, so the two agree within atol 1e-4
+on distances and in every index except on near-ties, not bit for bit:
+`window_match_agreement` states the rule. lba_landmark_blocks is bound by
+bytes (a gather-and-add over ~16k observations, 4 MB); it follows a plan
+with a fixed summation order (`lba_plan`: integer histogram, scan, fill,
+rank — no sort, no float atomics), keeps several observations' loads in
+flight, and writes all of H_pl once; it agrees with its plain version
+within rtol/atol 1e-5 (another summation order) and is bitwise repeatable.
+The source note at the head of each .cu file gives the design in full.
 
 Each CUDA source is compiled at first use with nvcc for sm_90a into a shared
 library with a plain C interface under build/kernels/ (one nvcc per source,
 all started together) and loaded with ctypes. A wrapper takes its plain
 version (`*_ref`) only for tensors on the CPU; for CUDA tensors it launches
-its kernel on PyTorch's current stream or raises — there is no fallback. Each
-wrapper counts its launches in `<wrapper>.launches`.
+its kernel on PyTorch's current stream or raises — there is no fallback. A
+call of a wrapper on CUDA tensors is one C call plus the allocation of its
+outputs and scratch with torch.empty. Each wrapper counts its launches in
+`<wrapper>.launches`.
 """
 from __future__ import annotations
 
@@ -24,17 +46,22 @@ import numpy as np
 import torch
 
 BIG = 1e9
-# column-winner scratch init: (float_bits(BIG) << 32) | row 0
+# a packed column winner no row has reached yet: (float_bits(BIG) << 32) | row 0
 _BIG_PACKED = int(np.float32(BIG).view(np.int32)) << 32
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = {"window_match": "window_match.cu", "lba_blocks": "lba_blocks.cu"}
+SOURCES = {"window_match": "window_match.cu", "lba_blocks": "lba_blocks.cu",
+           "launch_floor": "launch_floor.cu"}
+MAX_D = 256           # descriptor depth window_match.cu holds in shared memory
+MAX_P = 128           # keyframe rows lba_blocks.cu stages in shared memory
+MAX_L = 25000         # histogram bins lba_plan's kernel holds in shared memory
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_LIBS: dict = {}
+_LIBS: dict = {}      # library name -> path of the loaded .so
+_FNS: dict = {}       # C entry point name -> bound ctypes function
 
 
 def _nvcc() -> str:
@@ -47,16 +74,27 @@ def _nvcc() -> str:
                        "are built from csrc/ at first use")
 
 
-def _bind(name: str, lib: ctypes.CDLL):
-    vp, i = ctypes.c_void_p, ctypes.c_int
+def _bind(name: str, lib: ctypes.CDLL) -> dict:
+    """The C entry points of one library, by function name."""
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "window_match":
-        fn = lib.window_match_topk2_launch
-        fn.argtypes = [vp] * 7 + [i, i, i] + [vp] * 5
+        sigs = {"window_match_topk2_launch":
+                ([vp] * 4 + [f] + [vp] * 3 + [i, i, i] + [vp] * 6,
+                 ctypes.c_int),
+                "window_match_scratch_bytes": ([i, i, i], ctypes.c_long)}
+    elif name == "lba_blocks":
+        sigs = {"lba_landmark_blocks_launch":
+                ([vp] * 3 + [i, i, i] + [vp] * 4, ctypes.c_int),
+                "lba_plan_launch": ([vp, i, i, i] + [vp] * 4, ctypes.c_int)}
     else:
-        fn = lib.lba_landmark_blocks_launch
-        fn.argtypes = [vp] * 3 + [i, i] + [vp] * 3
-    fn.restype = ctypes.c_int
-    return fn
+        sigs = {"launch_floor_launch": ([vp], ctypes.c_int)}
+    fns = {}
+    for fname, (argtypes, restype) in sigs.items():
+        fn = getattr(lib, fname)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        fns[fname] = fn
+    return fns
 
 
 def build_kernels() -> float:
@@ -95,17 +133,21 @@ def build_kernels() -> float:
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
     for name, (_, out) in todo.items():
-        _LIBS[name] = _bind(name, ctypes.CDLL(out))
+        _FNS.update(_bind(name, ctypes.CDLL(out)))
+        _LIBS[name] = out
     return time.perf_counter() - t0
 
 
-def _launch_fn(name: str):
-    if name not in _LIBS:
+def _launch_fn(fname: str):
+    if fname not in _FNS:
         build_kernels()
-    return _LIBS[name]
+    return _FNS[fname]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
+    if (t.dtype == dtype and t.shape == shape and t.device == device and
+            t.is_contiguous()):
+        return
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -123,18 +165,34 @@ def _raise_on(err: int, what: str):
                            f"({torch.cuda.get_device_name()})")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    """PyTorch's current stream on `device` as the raw handle the C entry
+    points take. The private accessor returns it without building a Stream
+    object (several microseconds a call); the public path is the fallback."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        idx = device.index
+        return raw(torch.cuda.current_device() if idx is None else idx)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def launch_counts() -> dict:
     return {"window_match_topk2": window_match_topk2.launches,
-            "lba_landmark_blocks": lba_landmark_blocks.launches}
+            "lba_landmark_blocks": lba_landmark_blocks.launches,
+            "lba_plan": lba_plan.launches}
 
 
 def reset_launch_counts():
     window_match_topk2.launches = 0
     lba_landmark_blocks.launches = 0
+    lba_plan.launches = 0
+
+
+def launch_floor():
+    """Launch an empty kernel through the same kind of C entry point as the
+    kernels: what any separately launched kernel costs at least."""
+    _raise_on(_launch_fn("launch_floor_launch")(
+        _stream(torch.device("cuda"))), "launch_floor launch")
 
 
 # ---------------------------------------------------------------------------
@@ -147,11 +205,11 @@ def _radius2(radius, M: int, device) -> torch.Tensor:
     return (r * r).contiguous()
 
 
-def window_match_topk2_ref(qdesc, qxy, qvalid, tdesc, txy, tvalid, radius):
-    """Plain PyTorch version of window_match_topk2 (port of the reference's
-    window_match_topk2_xla oracle). The descriptor dot is accumulated in
-    ascending k with one rounding per product and per sum — the kernel's
-    exact arithmetic, so kernel and plain version agree bit for bit."""
+def window_match_dist_ref(qdesc, qxy, qvalid, tdesc, txy, tvalid, radius):
+    """The plain version's masked distance matrix [M,N]: squared L2 of the
+    bf16-rounded descriptors, the dot accumulated in ascending k with one
+    rounding per product and per sum, BIG outside the query's window or
+    where either side is invalid."""
     M, D = qdesc.shape
     q = qdesc.to(torch.bfloat16).to(torch.float32)
     t = tdesc.to(torch.bfloat16).to(torch.float32)
@@ -165,7 +223,12 @@ def window_match_topk2_ref(qdesc, qxy, qvalid, tdesc, txy, tvalid, radius):
     dy = qxy[:, None, 1] - txy[None, :, 1]
     mask = ((dx * dx + dy * dy) <= r2[:, None]) & tvalid[None, :] & \
         qvalid[:, None]
-    dist = torch.where(mask, dist, torch.full_like(dist, BIG))
+    return torch.where(mask, dist, torch.full_like(dist, BIG))
+
+
+def window_match_reduce_ref(dist):
+    """Row top-2 with argmin and column winners of a masked distance matrix:
+    (best [M], second [M], idx [M] i32, col_best [N], col_idx [N] i32)."""
     idx = torch.argmin(dist, dim=1)
     best = torch.amin(dist, dim=1)
     col = torch.arange(dist.shape[1], device=dist.device)[None, :]
@@ -177,12 +240,77 @@ def window_match_topk2_ref(qdesc, qxy, qvalid, tdesc, txy, tvalid, radius):
             cidx.to(torch.int32))
 
 
+def window_match_topk2_ref(qdesc, qxy, qvalid, tdesc, txy, tvalid, radius):
+    """Plain PyTorch version of window_match_topk2 (port of the reference's
+    window_match_topk2_xla oracle), ascending-k f32 sums of the exact bf16
+    products. The CUDA kernel adds the same products on the tensor cores in
+    another order, so it agrees with this within atol 1e-4, not bit for bit
+    (window_match_agreement)."""
+    return window_match_reduce_ref(window_match_dist_ref(
+        qdesc, qxy, qvalid, tdesc, txy, tvalid, radius))
+
+
+def window_match_agreement(out, ref_out, ref_dist, atol: float = 1e-4):
+    """Hold the five outputs `out` of a window match against the plain
+    version's `ref_out` and its masked distance matrix `ref_dist` [M,N].
+
+    The dot's 256 products are exact in f32, so implementations differ only
+    in the order and rounding of the sum: |d dist| <= 2 * 255 * 2^-24 *
+    sum |q_k t_k| <= 3e-5 for unit descriptors, and an order statistic moves
+    by no more than the largest entry-wise change. The rule: best, second
+    and col_best within `atol`, with equal found sets (< 1e8); an index may
+    differ from the plain version's only on a near-tie, i.e. the plain
+    distance at the index given is within `atol` of the plain minimum (rows
+    and columns without any admissible pair must give index 0).
+
+    Returns a dict: ok, max_abs_err, idx_differ, col_idx_differ (indices
+    that differ, all of them near-ties when ok) and why (the failed checks).
+    """
+    best, second, idx, cbest, cidx = out
+    rbest, rsecond, ridx, rcbest, rcidx = ref_out
+    M, N = ref_dist.shape
+    why = []
+    err = 0.0
+    for name, a, b in (("best", best, rbest), ("second", second, rsecond),
+                       ("col_best", cbest, rcbest)):
+        found = b < 1e8
+        if not torch.equal(a < 1e8, found):
+            why.append(f"{name}: found set differs")
+            continue
+        if bool(found.any()):
+            e = float(torch.max(torch.abs(a[found] - b[found])))
+            err = max(err, e)
+            if not e <= atol:
+                why.append(f"{name}: max |err| {e:.3g} > {atol}")
+    n_diff = []
+    for name, i, ri, mn, size, along in (("idx", idx, ridx, rbest, N, 1),
+                                         ("col_idx", cidx, rcidx, rcbest, M,
+                                          0)):
+        i, ri = i.long(), ri.long()
+        found = mn < 1e8
+        if bool(((i < 0) | (i >= size)).any()):
+            why.append(f"{name}: out of range")
+            n_diff.append(int((i != ri).sum()))
+            continue
+        at = torch.gather(ref_dist, along, i[:, None] if along else
+                          i[None, :]).reshape(-1)
+        bad = torch.where(found, torch.abs(at - mn) > atol, i != 0)
+        if bool(bad.any()):
+            why.append(f"{name}: {int(bad.sum())} indices off a near-tie")
+        n_diff.append(int((i != ri).sum()))
+    return dict(ok=not why, max_abs_err=err, idx_differ=n_diff[0],
+                col_idx_differ=n_diff[1], why=why)
+
+
 def window_match_topk2(qdesc, qxy, qvalid, tdesc, txy, tvalid, radius):
     """Fused masked window match. qdesc [M,D] f32, qxy [M,2], qvalid [M]
     bool; tdesc [N,D], txy [N,2], tvalid [N] bool; radius scalar or [M].
     Returns (best [M], second [M], idx [M] i32, col_best [N], col_idx [N]
     i32); SQUARED L2 distances, BIG where no admissible pair exists. Any M
-    and N >= 1; an empty target set is refused on every device."""
+    and N >= 1; an empty target set is refused on every device, D > 256 on
+    the card. On CUDA tensors the outputs are views of two buffers (the
+    column outputs strided): the wrapper costs the host three allocations,
+    four views and one C call."""
     dev = qdesc.device
     if tdesc.shape[0] == 0:
         raise ValueError("window_match_topk2: no targets (N == 0)")
@@ -193,7 +321,8 @@ def window_match_topk2(qdesc, qxy, qvalid, tdesc, txy, tvalid, radius):
         raise ValueError(f"window_match_topk2: unsupported device {dev}")
     M, D = qdesc.shape
     N = tdesc.shape[0]
-    r2 = _radius2(radius, M, dev)
+    if D > MAX_D:
+        raise ValueError(f"window_match_topk2: D = {D} > {MAX_D}")
     for t, n, dt, shp in ((qdesc, "qdesc", torch.float32, (M, D)),
                           (qxy, "qxy", torch.float32, (M, 2)),
                           (qvalid, "qvalid", torch.bool, (M,)),
@@ -201,26 +330,45 @@ def window_match_topk2(qdesc, qxy, qvalid, tdesc, txy, tvalid, radius):
                           (txy, "txy", torch.float32, (N, 2)),
                           (tvalid, "tvalid", torch.bool, (N,))):
         _check(t, n, dt, shp, dev)
-    fn = _launch_fn("window_match")
-    best = torch.empty(M, dtype=torch.float32, device=dev)
-    second = torch.empty(M, dtype=torch.float32, device=dev)
-    idx = torch.empty(M, dtype=torch.int32, device=dev)
-    colwin = torch.full((N,), _BIG_PACKED, dtype=torch.int64, device=dev)
-    err = fn(qdesc.data_ptr(), qxy.data_ptr(), qvalid.data_ptr(),
-             r2.data_ptr(), tdesc.data_ptr(), txy.data_ptr(),
-             tvalid.data_ptr(), M, N, D, best.data_ptr(), second.data_ptr(),
-             idx.data_ptr(), colwin.data_ptr(), _stream())
+    if isinstance(radius, (int, float, np.floating, np.integer)):
+        r_ptr, r_scalar = None, float(radius)
+    else:
+        if not (isinstance(radius, torch.Tensor) and radius.device == dev and
+                radius.dtype == torch.float32 and radius.shape == (M,) and
+                radius.is_contiguous()):
+            radius = torch.broadcast_to(
+                torch.as_tensor(radius, dtype=torch.float32, device=dev),
+                (M,)).contiguous()
+        r_ptr, r_scalar = radius.data_ptr(), 0.0
+    fn = _launch_fn("window_match_topk2_launch")
+    rows = torch.empty((3, M), dtype=torch.float32, device=dev)
+    # packed column winners, one 64-bit word each, as their 32-bit halves
+    halves = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    scratch = torch.empty(_FNS["window_match_scratch_bytes"](M, N, D),
+                          dtype=torch.uint8, device=dev)
+    p_rows = rows.data_ptr()
+    err = fn(qdesc.data_ptr(), qxy.data_ptr(), qvalid.data_ptr(), r_ptr,
+             r_scalar, tdesc.data_ptr(), txy.data_ptr(), tvalid.data_ptr(),
+             M, N, D, scratch.data_ptr(), p_rows, p_rows + 4 * M,
+             p_rows + 8 * M, halves.data_ptr(), _stream(dev))
     _raise_on(err, "window_match_topk2 launch")
     window_match_topk2.launches += 1
-    return (best, second, idx) + unpack_col_winners(colwin)
+    best, second, idx = rows.unbind(0)
+    return (best, second, idx.view(torch.int32)) + _unpack_halves(halves)
+
+
+def _unpack_halves(halves: torch.Tensor):
+    """The 32-bit halves [N,2] of the packed column winners (little-endian:
+    the row is the low word) -> (col_best [N] f32, col_idx [N] i32), as
+    strided views."""
+    col_idx, col_bits = halves.unbind(1)
+    return col_bits.view(torch.float32), col_idx
 
 
 def unpack_col_winners(colwin: torch.Tensor):
     """Packed column winners [N] int64, (float_bits(dist) << 32) | row, ->
     (col_best [N] f32, col_idx [N] i32)."""
-    cbest = (colwin >> 32).to(torch.int32).view(torch.float32)
-    cidx = (colwin & 0xFFFFFFFF).to(torch.int32)
-    return cbest, cidx
+    return _unpack_halves(colwin.view(torch.int32).view(-1, 2))
 
 
 window_match_topk2.launches = 0
@@ -230,11 +378,10 @@ window_match_topk2.launches = 0
 # Kernel 2: local-BA landmark-block reduction
 # ---------------------------------------------------------------------------
 
-def lba_plan(row_lm: torch.Tensor, L: int):
-    """Fixed-order reduction plan for lba_landmark_blocks: the flat
-    observation ids p*N+n of valid entries (0 <= id < L) stably sorted by
-    (landmark, row), and per-landmark segment offsets [L+1]. ba_solve builds
-    it once per solve (the ids do not change across LM iterations)."""
+def lba_plan_ref(row_lm: torch.Tensor, L: int):
+    """Plain PyTorch version of lba_plan: a stable sort of the flat
+    observation ids by (landmark, row), and a binary search for the
+    per-landmark segment offsets."""
     P, N = row_lm.shape
     dev = row_lm.device
     flat = row_lm.reshape(-1).long()
@@ -245,6 +392,39 @@ def lba_plan(row_lm: torch.Tensor, L: int):
     bounds = torch.arange(L + 1, device=dev) * P
     lm_off = torch.searchsorted(key[order], bounds)
     return order.to(torch.int32), lm_off.to(torch.int32)
+
+
+def lba_plan(row_lm: torch.Tensor, L: int):
+    """Fixed-order reduction plan for lba_landmark_blocks: (perm [P*N] i32,
+    lm_off [L+1] i32). perm lists the flat observation ids p*N+n landmark by
+    landmark, each landmark's segment perm[lm_off[l]:lm_off[l+1]] ascending
+    (keyframe rows, then n), followed by the observations without a
+    landmark (id < 0 or >= L), ascending. ba_solve builds it once per solve
+    (the ids do not change across LM iterations). On CUDA tensors one
+    kernel builds it (histogram, scan, row-ordered fill: no sort); on the
+    CPU the
+    plain version does, and the two are equal."""
+    dev = row_lm.device
+    if dev.type == "cpu":
+        return lba_plan_ref(row_lm, L)
+    if dev.type != "cuda":
+        raise ValueError(f"lba_plan: unsupported device {dev}")
+    P, N = row_lm.shape
+    _check(row_lm, "row_lm", torch.int32, (P, N), dev)
+    if P * N == 0 or not 0 <= L <= MAX_L:
+        raise ValueError(f"lba_plan: P*N = {P * N}, L = {L} (needs P*N >= 1 "
+                         f"and 0 <= L <= {MAX_L})")
+    fn = _launch_fn("lba_plan_launch")
+    buf = torch.empty(2 * P * N + L + 1, dtype=torch.int32, device=dev)
+    perm, scratch, lm_off = buf[:P * N], buf[P * N:2 * P * N], buf[2 * P * N:]
+    err = fn(row_lm.data_ptr(), P, N, L, perm.data_ptr(), lm_off.data_ptr(),
+             scratch.data_ptr(), _stream(dev))
+    _raise_on(err, "lba_plan launch")
+    lba_plan.launches += 1
+    return perm, lm_off
+
+
+lba_plan.launches = 0
 
 
 def lba_landmark_blocks_ref(row_lm, vals, L: int):
@@ -267,27 +447,29 @@ def lba_landmark_blocks(row_lm, vals, L: int, plan):
     [JtJ_l(9) | b_l(3) | JtJ_pl(18)]; plan = lba_plan(row_lm, L), which the
     caller builds once for all calls on the same ids (the plain version on
     the CPU does not read it). Returns (H_ll [L,3,3], g_l [L,3],
-    H_pl [P,L,6,3]). Any L and N on the card."""
+    H_pl [P,L,6,3]). Any L and N on the card, P <= 128."""
     dev = vals.device
     if dev.type == "cpu":
         return lba_landmark_blocks_ref(row_lm, vals, L)
     if dev.type != "cuda":
         raise ValueError(f"lba_landmark_blocks: unsupported device {dev}")
     P, N = row_lm.shape
+    if P > MAX_P:
+        raise ValueError(f"lba_landmark_blocks: P = {P} > {MAX_P}")
     _check(row_lm, "row_lm", torch.int32, (P, N), dev)
     _check(vals, "vals", torch.float32, (P, N, 30), dev)
     perm, lm_off = plan
     _check(perm, "perm", torch.int32, (P * N,), dev)
     _check(lm_off, "lm_off", torch.int32, (L + 1,), dev)
-    fn = _launch_fn("lba_blocks")
-    out12 = torch.empty((L, 12), dtype=torch.float32, device=dev)
-    hpl = torch.zeros((P, L, 18), dtype=torch.float32, device=dev)
-    err = fn(vals.data_ptr(), perm.data_ptr(), lm_off.data_ptr(), L, N,
-             out12.data_ptr(), hpl.data_ptr(), _stream())
+    fn = _launch_fn("lba_landmark_blocks_launch")
+    H_ll = torch.empty((L, 3, 3), dtype=torch.float32, device=dev)
+    g_l = torch.empty((L, 3), dtype=torch.float32, device=dev)
+    H_pl = torch.empty((P, L, 6, 3), dtype=torch.float32, device=dev)
+    err = fn(vals.data_ptr(), perm.data_ptr(), lm_off.data_ptr(), P, L, N,
+             H_ll.data_ptr(), g_l.data_ptr(), H_pl.data_ptr(), _stream(dev))
     _raise_on(err, "lba_landmark_blocks launch")
     lba_landmark_blocks.launches += 1
-    return (out12[:, :9].reshape(L, 3, 3), out12[:, 9:12],
-            hpl.reshape(P, L, 6, 3))
+    return H_ll, g_l, H_pl
 
 
 lba_landmark_blocks.launches = 0

@@ -6,7 +6,10 @@ against pallas_kernels.* in interpret mode and against the *_xla oracles,
 with the tolerances of tests/test_pallas_kernels.py (exact indices,
 distances within 2e-2, block sums within rtol/atol 1e-5). The CUDA kernels
 themselves are compared with the plain versions on the card by
-tests/test_torch_cuda.py.
+tests/test_torch_cuda.py; what of them can be checked without a card is
+checked here: the rule by which the tensor-core window match is held
+against its plain version (kernels.window_match_agreement), and the
+sort-free algorithm of the device reduction plan, run in Python.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -150,6 +153,87 @@ class TestWindowMatchPlain:
         assert int(ci_k[~found].abs().sum()) == 0
 
 
+class TestWindowMatchAgreement:
+    """The rule that holds the CUDA kernel (f32 sums of the exact bf16
+    products in the tensor cores' order) against the plain version
+    (ascending-k sums): distances within atol 1e-4, an index free only on a
+    near-tie. Stand-in for the kernel here: one f32 matmul, whose sum runs
+    in yet another order."""
+
+    RADIUS = 40.0
+
+    def _case(self):
+        q, qxy, qv, t, txy, tv = make_problem(M=200, N=150, D=64, seed=11)
+        qv[:] = True
+        tv[:] = True
+        t[7], txy[7] = t[5], txy[5]       # row 5: columns 5 and 7 tie exactly
+        q[50], qxy[50] = q[10], qxy[10]   # column 10: rows 10 and 50 tie
+        args = _torch((q, qxy, qv, t, txy, tv))
+        ref_dist = kernels.window_match_dist_ref(*args, self.RADIUS)
+        ref_out = kernels.window_match_reduce_ref(ref_dist)
+        qb = args[0].to(torch.bfloat16).float()
+        tb = args[3].to(torch.bfloat16).float()
+        alt = torch.clamp(2.0 - 2.0 * (qb @ tb.T), min=0.0)
+        alt = torch.where(ref_dist < 1e8, alt,
+                          torch.full_like(alt, kernels.BIG))
+        out = [o.clone() for o in kernels.window_match_reduce_ref(alt)]
+        return out, ref_out, ref_dist
+
+    def test_accepts_another_summation_order(self):
+        out, ref_out, ref_dist = self._case()
+        assert float(ref_dist[5, 5]) == float(ref_dist[5, 7]) < 1e-3
+        assert int(ref_out[2][5]) == 5 and int(ref_out[4][10]) == 10
+        res = kernels.window_match_agreement(out, ref_out, ref_dist)
+        assert res["ok"], res
+        assert res["max_abs_err"] <= 1e-4
+        same = kernels.window_match_agreement(ref_out, ref_out, ref_dist)
+        assert same["ok"] and same["max_abs_err"] == 0.0
+        assert same["idx_differ"] == same["col_idx_differ"] == 0
+
+    @pytest.mark.parametrize("which,row,other", [("idx", 5, 7),
+                                                 ("col_idx", 10, 50)])
+    def test_accepts_the_other_side_of_an_exact_tie(self, which, row, other):
+        out, ref_out, ref_dist = self._case()
+        out = list(ref_out)
+        k = 2 if which == "idx" else 4
+        out[k] = ref_out[k].clone()
+        out[k][row] = other
+        res = kernels.window_match_agreement(out, ref_out, ref_dist)
+        assert res["ok"], res
+        assert res[which + "_differ"] == 1
+
+    @pytest.mark.parametrize("which", ["idx", "col_idx"])
+    def test_rejects_one_wrong_index(self, which):
+        out, ref_out, ref_dist = self._case()
+        k, dim = (2, 1) if which == "idx" else (4, 0)
+        found = torch.nonzero(ref_out[0 if dim else 3] < 1e8)[:, 0]
+        i = int(found[3])
+        line = ref_dist[i] if dim else ref_dist[:, i]
+        out[k][i] = int(torch.argmax(line))      # a far or inadmissible pair
+        res = kernels.window_match_agreement(out, ref_out, ref_dist)
+        assert not res["ok"] and which in res["why"][0]
+
+    @pytest.mark.parametrize("k,name", [(0, "best"), (1, "second"),
+                                        (3, "col_best")])
+    def test_rejects_one_distance_off_by_1e_3(self, k, name):
+        out, ref_out, ref_dist = self._case()
+        i = int(torch.nonzero(ref_out[k] < 1e8)[2, 0])
+        out[k][i] += 1e-3
+        res = kernels.window_match_agreement(out, ref_out, ref_dist)
+        assert not res["ok"] and name in res["why"][0]
+
+    def test_rejects_a_found_set_that_differs_or_an_index_out_of_range(self):
+        out, ref_out, ref_dist = self._case()
+        i = int(torch.nonzero(ref_out[0] < 1e8)[0, 0])
+        out[0][i] = kernels.BIG
+        assert not kernels.window_match_agreement(out, ref_out,
+                                                  ref_dist)["ok"]
+        out, ref_out, ref_dist = self._case()
+        out[2][0] = ref_dist.shape[1]
+        assert not kernels.window_match_agreement(out, ref_out,
+                                                  ref_dist)["ok"]
+
+
 def lba_problem(P=4, N=256, L=512, seed=0):
     rng = np.random.default_rng(seed)
     row_lm = rng.integers(0, L, size=(P, N)).astype(np.int32)
@@ -225,6 +309,68 @@ class TestLbaLandmarkBlocksPlain:
         np.testing.assert_allclose(out12[:, 9:], g, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(hpl.reshape(P, L, 6, 3), W, rtol=1e-5,
                                    atol=1e-5)
+
+    @pytest.mark.parametrize("case", ["random", "duplicates_out_of_range",
+                                      "no_valid", "all_one_landmark"])
+    def test_device_plan_algorithm_equals_sort(self, case):
+        """The device plan's algorithm, run in Python: integer histogram of
+        the ids, exclusive scan to the segment offsets, fill of the segments
+        one keyframe row after the other, within a row in an arbitrary order
+        (the order in which atomics hand out slots, here a shuffle), then
+        within every run of entries of one row the rank by counting the
+        smaller flat ids, and ordered compaction of the observations
+        without a landmark. Whatever the fill order, it must equal the
+        plain version's stable sort and binary search."""
+        P, N, L = 5, 60, 40
+        row_lm, _ = lba_problem(P, N, L, seed=6)
+        if case == "duplicates_out_of_range":
+            row_lm[2, :10] = 7
+            row_lm[:, -1] = L + 3
+            row_lm[0, 0] = L
+        elif case == "no_valid":
+            row_lm[:] = -1
+        elif case == "all_one_landmark":
+            row_lm[:] = 3
+        perm_r, off_r = kernels.lba_plan(torch.as_tensor(row_lm), L)
+        flat = row_lm.reshape(-1)
+        ok = (flat >= 0) & (flat < L)
+        cnt = np.zeros(L + 1, np.int64)
+        np.add.at(cnt, np.where(ok, flat, L), 1)
+        off = np.concatenate([[0], np.cumsum(cnt)])[:L + 1]
+        np.testing.assert_array_equal(off, off_r.numpy())
+        for shuffle in range(3):
+            rng = np.random.default_rng(shuffle)
+            cur = off.copy()
+            fill = np.full(P * N, -1)
+            for p in range(P):
+                for o in p * N + rng.permutation(N):
+                    if ok[o]:
+                        fill[cur[flat[o]]] = o
+                        cur[flat[o]] += 1
+            perm = np.full(P * N, -1)
+            for k in range(off[L]):
+                o = fill[k]
+                s, e = off[flat[o]], off[flat[o]] + cnt[flat[o]]
+                lo, hi = o // N * N, o // N * N + N
+                a, b = k, k + 1
+                while a > s and fill[a - 1] >= lo:
+                    a -= 1
+                while b < e and fill[b] < hi:
+                    b += 1
+                perm[a + int(np.sum(fill[a:b] < o))] = o
+            perm[off[L]:] = np.flatnonzero(~ok)
+            np.testing.assert_array_equal(perm, perm_r.numpy())
+
+    def test_plan_wrapper_on_cpu_takes_plain_version(self):
+        row_lm = torch.as_tensor(lba_problem(3, 32, 20, seed=8)[0])
+        before = kernels.lba_plan.launches
+        for a, b in zip(kernels.lba_plan(row_lm, 20),
+                        kernels.lba_plan_ref(row_lm, 20)):
+            assert torch.equal(a, b)
+        assert kernels.lba_plan.launches == before
+        with pytest.raises(ValueError, match="unsupported device"):
+            kernels.lba_plan(torch.zeros((2, 4), dtype=torch.int32,
+                                         device="meta"), 8)
 
     def test_wrapper_on_cpu_takes_plain_version(self):
         row_lm, vals = lba_problem(2, 64, 50, seed=4)
