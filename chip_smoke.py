@@ -14,18 +14,34 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
      wrapper between CUDA events, median of 25 after warm-up), the device
      time of the kernel's own launches (torch.profiler) and an empty kernel
      launched the same way (the floor under any separately launched kernel);
-  3. drive the port's main path: the 60-frame 640x480 detector-on RGB-D
-     sequence of bench.py through System(device="cuda") at MapCaps() =
-     K=256/L=32768/N=1024/D=256, 1024 features, non-pipelined, descriptor
-     mutual-NN matcher — once to warm up, then a timed pass with every
-     kernel launch counter and the host-sync counter set to 0 just before it
-     and read just after; bench.py's checks (>= 51/60 frames tracked, >= 5
-     keyframes, >= 1000 landmarks, detector fired) plus finite poses and
-     the ATE against the ground truth;
-  4. agreement on a small input: 4 frames at 320x240 through the same
-     System on the CPU (the kernels' plain versions) and on the card;
-  5. where the time goes: six steady-state frames under torch.profiler
-     (device busy share, kernel launches per frame, top operators).
+  3. drive the port's main path, bench.py's own configuration: the 60-frame
+     640x480 detector-on RGB-D sequence through System(device="cuda",
+     matcher="auto", pipelined=True) at MapCaps() = K=256/L=32768/N=1024/
+     D=256, 1024 features, LightGlue matcher, deferred decisions, one
+     captured CUDA graph per tracked frame — once to warm up, then a timed
+     pass with every kernel launch counter, the LightGlue forward counter
+     and the host-sync counters set to 0 just before it and read just after
+     (a graph replay adds the launches it holds); bench.py's checks (>=
+     51/60 frames tracked, >= 5 keyframes, >= 1000 landmarks, detector
+     fired) plus finite poses, the ATE against the ground truth, >= 50
+     graph replays and fewer blocking host syncs per frame than the
+     non-pipelined path's 2.33; then a jump in the timestamps, which must
+     stash the map in the Atlas and go on tracking on a new one;
+  4. the earlier path at a smaller depth: the non-pipelined, descriptor
+     mutual-NN configuration for 20 frames, its checks scaled;
+  5. held against each other: a small input on the CPU (the kernels' plain
+     versions) and on the card; LightGlue on the card against the CPU on
+     one pair of 1024 keypoints (and its time per forward at both call
+     shapes of the path); pipelined against non-pipelined trajectories (on
+     pre-extracted features within 5 cm, the rule of tests/test_slam_e2e.py,
+     and on 30 frames of the image sequence within 0.15 m); graph replay
+     against the eager fused function over 8 frames (same bindings, poses
+     within 1e-5);
+  6. where the time goes: six steady-state frames of the main path under
+     torch.profiler (device busy share, kernels per frame inside and outside
+     the graph, top operators), and the device time and kernel count of a
+     replayed frame and of the two candidates that selecting the fallbacks
+     on the device always computes.
 
 The line before the last is {"kernels": [...]} with each kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without CUDA, or run outside
@@ -290,18 +306,23 @@ def make_sequence(n_frames, width, height, f, angle_span):
     return R_gt, t_gt, imgs, deps, times
 
 
-def make_system(device, caps, n_feat, width, height, f):
-    """A fresh System in the slice's configuration, with bench.py's
-    keypoint threshold."""
+NEW = dict(matcher="auto", pipelined=True)      # bench.py's configuration
+OLD = dict(matcher=None, pipelined=False)       # the first slice's
+
+
+def make_system(device, caps, n_feat, width, height, f, mode,
+                detector=True):
+    """A fresh System in configuration `mode`, with bench.py's keypoint
+    threshold."""
     from dani_slam_tpu_torch.core import cameras
     from dani_slam_tpu_torch.models import yolo
     from dani_slam_tpu_torch.slam.system import Sensor, System
     cam = cameras.Camera.pinhole(f, f, width / 2, height / 2, width, height,
                                  device=device)
     sys_ = System(cam, Sensor.RGBD, caps=caps, n_features=n_feat,
-                  detector=yolo.load_default_detector(device),
-                  matcher=None, pipelined=False, enable_loop_closing=False,
-                  enable_relocalization=False, device=device)
+                  detector=yolo.load_default_detector(device) if detector
+                  else None, enable_loop_closing=False,
+                  enable_relocalization=False, device=device, **mode)
     sys_.sp_threshold = 0.012
     return sys_
 
@@ -315,15 +336,18 @@ def frames_on(device, seq):
              for x in deps], times)
 
 
-def run_system(device, caps, n_feat, seq, width, height, f):
+def run_system(device, caps, n_feat, seq, width, height, f, mode,
+               n_frames=None, frame_graph=None):
     """One pass through a fresh System; returns (system, n_ok, seconds)."""
-    sys_ = make_system(device, caps, n_feat, width, height, f)
+    sys_ = make_system(device, caps, n_feat, width, height, f, mode)
+    if frame_graph is not None:
+        sys_.tracker.frame_graph = frame_graph
     imgs, deps, times = frames_on(device, seq)
     if device == "cuda":
         _sync()
     t0 = time.perf_counter()
     n_ok = 0
-    for i in range(len(imgs)):
+    for i in range(n_frames or len(imgs)):
         state, _, _ = sys_.track_rgbd(imgs[i], deps[i], times[i])
         n_ok += state == "OK"
     sys_.shutdown()
@@ -332,23 +356,140 @@ def run_system(device, caps, n_feat, seq, width, height, f):
     return sys_, n_ok, time.perf_counter() - t0
 
 
+def trajectory_ate(sys_, seq):
+    """(camera centres [F,3], ATE RMSE in m against the ground truth)."""
+    import numpy as np
+    from dani_slam_tpu_torch.utils import eval as ev
+    traj = sys_.tracker.trajectory
+    C_est = centers(traj)
+    idx = np.round(np.asarray([tm for tm, _, _ in traj]) * 30).astype(int)
+    C_gt = ev.centers_from_tcw(seq[0][idx], seq[1][idx])
+    return C_est, ev.ate_rmse(C_est, C_gt)
+
+
+def check_lightglue(width, height):
+    """LightGlue on the card against the CPU on one pair of 1024 keypoints,
+    and its time per forward at the two call shapes of the main path. The
+    bf16 layers of the two devices round differently (as the two libraries
+    do in tests/test_torch_lightglue.py): probabilities within 0.03, match
+    sets differing on at most 2 % of the rows."""
+    import numpy as np
+    import torch
+    from dani_slam_tpu_torch.models import lightglue as lg
+    rng = np.random.RandomState(0)
+
+    def pair(b, n):
+        xy0 = rng.uniform(0, [width, height], (b, n, 2)).astype(np.float32)
+        d0 = rng.randn(b, n, 256).astype(np.float32)
+        d0 /= np.linalg.norm(d0, axis=-1, keepdims=True)
+        perm = rng.permutation(n)
+        xy1 = xy0[:, perm] + rng.randn(b, n, 2).astype(np.float32)
+        d1 = d0[:, perm] + 0.05 * rng.randn(b, n, 256).astype(np.float32)
+        d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+        m0 = np.broadcast_to(np.arange(n)[None] < int(0.9 * n), (b, n))
+        m1 = np.broadcast_to(np.arange(n)[None] < int(0.8 * n), (b, n))
+        return xy0, d0, m0.copy(), xy1, d1, m1.copy()
+
+    a = pair(1, 1024)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ms = lg.load_default_matcher(width, height, device=dev)
+        outs[dev] = [x.cpu().numpy() for x in lg.match_pairs(
+            ms.model, *(torch.as_tensor(x, device=dev) for x in a), width,
+            height)]
+    (ic, bc, okc), (ig, bg, okg) = outs["cpu"], outs["cuda"]
+    d_best = float(np.abs(bc - bg).max())
+    differ = int(((okc != okg) | (okc & okg & (ic != ig))).sum())
+    print(f"LightGlue card vs CPU, 1 x 1024 x 1024 keypoints: accepted "
+          f"{int(okg.sum())} / {int(okc.sum())}, best probability differs "
+          f"by at most {d_best:.4f} (limit 0.03), {differ} of 1024 rows "
+          f"differ in match (limit 20)", flush=True)
+    if not (d_best < 0.03 and differ <= 20 and okg.sum() > 100):
+        raise SystemExit("LightGlue on the card disagrees with the CPU")
+    ms = lg.load_default_matcher(width, height, device="cuda")
+    times = {}
+    for name, (b, n) in (("1x1024", (1, 1024)), ("5x512", (5, 512))):
+        args = [torch.as_tensor(x, device="cuda") for x in pair(b, n)]
+        times[name] = time_ms(lambda: lg.match_pairs(ms.model, *args, width,
+                                                     height), reps=10)
+    print(f"LightGlue forward (match_pairs, eager, CUDA events, median of "
+          f"10): {times['1x1024']:.3f} ms at 1 x 1024^2 tokens, "
+          f"{times['5x512']:.3f} ms at 5 x 512^2", flush=True)
+    return times
+
+
+def feature_frames(n_frames, n_max, device):
+    """The pre-extracted-feature sequence of tests/test_slam_e2e.py's
+    pipelined case: 25 frames of an orbit around a random landmark cloud."""
+    import torch
+    from dani_slam_tpu_torch.slam.frame import FrameFeatures
+    from dani_slam_tpu_torch.utils import synthetic
+    world = synthetic.make_world(1500, desc_dim=64, seed=0)
+    R_gt, t_gt = synthetic.orbit_trajectory(n_frames, radius=10.0,
+                                            angle_span=0.5)
+    out = []
+    for i in range(n_frames):
+        xy, desc, depth, valid = synthetic.render_features(
+            world, [500.0, 500.0, 320.0, 240.0], 640, 480, R_gt[i], t_gt[i],
+            n_max=n_max, seed=i)
+        out.append(FrameFeatures(
+            *(torch.as_tensor(x, device=device) for x in
+              (xy, desc, depth, valid)),
+            time=torch.full((), i / 30.0, device=device)))
+    return out
+
+
+def check_pipelined_vs_plain_features():
+    """Deferred decisions must give an equivalent trajectory: 25 feature
+    frames through System.track_features, pipelined and not, on the card."""
+    import numpy as np
+    from dani_slam_tpu_torch.core import state as mstate
+    feats = feature_frames(25, 512, "cuda")
+    caps = mstate.MapCaps(K=64, L=8192, N=512, D=64)
+    outs = {}
+    for pipelined in (False, True):
+        sys_ = make_system("cuda", caps, 512, 640, 480, 500.0,
+                           dict(matcher="auto", pipelined=pipelined),
+                           detector=False)
+        for i, ft in enumerate(feats):
+            sys_.track_features(ft, timestamp=i / 30.0)
+        sys_.shutdown()
+        outs[pipelined] = sys_.tracker.trajectory
+    n = min(len(outs[True]), len(outs[False]))
+    d = float(np.linalg.norm(centers(outs[True][:n]) -
+                             centers(outs[False][:n]), axis=1).max())
+    print(f"pipelined vs non-pipelined on 25 feature frames: "
+          f"{len(outs[True])} / {len(outs[False])} poses, centres within "
+          f"{d:.4f} m (limit 0.05)", flush=True)
+    if len(outs[True]) < 23 or d >= 0.05:
+        raise SystemExit("pipelined and non-pipelined trajectories differ")
+
+
 def centers(traj):
     import numpy as np
     return np.stack([-R.T @ t for _, R, t in traj])
 
 
+def _kernel_events(prof):
+    return [e for e in prof.events()
+            if e.device_type.name == "CUDA" and e.device_time_total > 0]
+
+
 def profile_main_path(caps, seq, start, n_frames, width, height, f):
     """Frames start .. start+n_frames of the main path (after `start`
     frames run unprofiled) under torch.profiler: host wall time, summed
-    device time of the kernels, kernel launches per frame, and the
-    operators with the most device time. The profiler's own cost inflates
-    the host time; the device sums and launch counts are exact."""
+    device time of the kernels, kernels per frame — those launched one by
+    one from the host (counted by their cudaLaunchKernel calls) and those
+    inside graph replays (the rest) — and the operators with the most device
+    time. The profiler's own cost inflates the host time; the device sums
+    and kernel counts are exact."""
     from torch.profiler import ProfilerActivity, profile
-    sys_ = make_system("cuda", caps, 1024, width, height, f)
+    sys_ = make_system("cuda", caps, 1024, width, height, f, NEW)
     imgs, deps, times = frames_on("cuda", seq)
     for i in range(start):
         sys_.track_rgbd(imgs[i], deps[i], times[i])
     _sync()
+    replays0, kf0 = sys_.tracker.graph_replays, sys_._kf_count
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -356,20 +497,103 @@ def profile_main_path(caps, seq, start, n_frames, width, height, f):
             sys_.track_rgbd(imgs[i], deps[i], times[i])
         _sync()
         dt = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    kernels = _kernel_events(prof)
     dev_ms = sum(e.device_time_total for e in kernels) / 1e3
-    print(f"profiled frames {start}..{start + n_frames - 1}: host "
+    host_launches = sum(1 for e in prof.events()
+                        if e.device_type.name == "CPU" and
+                        e.name.startswith("cudaLaunchKernel"))
+    graph_launches = sum(1 for e in prof.events()
+                         if e.device_type.name == "CPU" and
+                         e.name.startswith("cudaGraphLaunch"))
+    in_graph = len(kernels) - host_launches
+    print(f"profiled frames {start}..{start + n_frames - 1} "
+          f"({sys_.tracker.graph_replays - replays0} replays, "
+          f"{sys_._kf_count - kf0} keyframe steps): host "
           f"{1e3 * dt / n_frames:.1f} ms/frame under the profiler, device "
           f"kernels {dev_ms / n_frames:.2f} ms/frame (busy share "
           f"{dev_ms / (1e3 * dt):.3f}), {len(kernels) / n_frames:.0f} "
-          f"kernel launches/frame", flush=True)
+          f"kernels/frame: {in_graph / n_frames:.0f} inside "
+          f"{graph_launches} graph launches, {host_launches / n_frames:.0f} "
+          f"launched from the host", flush=True)
     rows = sorted(prof.key_averages(),
                   key=lambda e: e.self_device_time_total, reverse=True)
     for e in rows[:12]:
         print(f"  {e.self_device_time_total / 1e3 / n_frames:8.3f} ms/frame "
               f"device, {e.count / n_frames:7.1f} calls/frame  "
               f"{e.key[:90]}", flush=True)
+
+
+def candidate_costs(width, height):
+    """Device time and kernel count of the captured frame program and of its
+    parts, each part captured as a graph of its own on the inputs the frame
+    graph last ran on: the detector, the frontend, the three candidates of
+    track_frame_step (the last two are what selecting the fallbacks on the
+    device adds to every frame) and the local-map track. Time: CUDA events
+    around one replay, median of 10; kernels: torch.profiler over 2
+    replays."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dani_slam_tpu_torch.core import lie
+    from dani_slam_tpu_torch.slam import frame as frame_mod
+    from dani_slam_tpu_torch.slam import framegraph, tracking
+    fg = next(g for g in framegraph._GRAPHS.values()
+              if tuple(g.img.shape[:2]) == (height, width) and
+              g.matcher is not None and g.st.caps.N == 1024)
+    feat0, R0, t0, bind0 = (fg._out[i] for i in (0, 1, 2, 3))
+    feat = type(feat0)(*(None if x is None else x.clone() for x in feat0))
+    R_new, t_new, bind_new = R0.clone(), t0.clone(), bind0.clone()
+    R_pred, t_pred = lie.se3_mul(fg.Rv, fg.tv, fg.R, fg.t)
+    boxes, bmask, _ = fg.detector.dynamic_mask_inputs(fg.img)
+    parts = {
+        "detector (YOLO, NMS, boxes)":
+            lambda: fg.detector.dynamic_mask_inputs(fg.img),
+        "frontend (SuperPoint, select, sample)":
+            lambda: frame_mod._frame_rgbd_program(
+                fg.sp_model, fg.img, fg.depth, fg.cam, fg.time, 5000.0,
+                0.012, boxes, bmask, n_max=1024),
+        "candidate 1: motion model, radius 15":
+            lambda: tracking.track_motion_model(
+                fg.st, fg.cam, feat, fg.last_bind, R_pred, t_pred,
+                radius=15.0, use_depth=True, rounds=2),
+        "candidate 2: motion model, radius 30 (extra)":
+            lambda: tracking.track_motion_model(
+                fg.st, fg.cam, feat, fg.last_bind, R_pred, t_pred,
+                radius=30.0, use_depth=True, rounds=2),
+        "candidate 3: reference keyframe, LightGlue (extra)":
+            lambda: tracking.track_reference_keyframe(
+                fg.st, fg.cam, feat, fg.ref_kf, fg.R, fg.t, use_depth=True,
+                matcher=fg.matcher),
+        "local-map track":
+            lambda: tracking.track_local_map(
+                fg.st, fg.cam, feat, bind_new, R_new, t_new, use_depth=True),
+    }
+    graphs = {"whole frame program": fg.graph}
+    for name, fn in parts.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            keep = fn()                              # noqa: F841
+        graphs[name] = g
+    out = {}
+    for name, g in graphs.items():
+        ms = time_ms(g.replay, reps=10, warmup=2)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            g.replay()
+            g.replay()
+            _sync()
+        ks = _kernel_events(prof)
+        out[name] = (ms, len(ks) / 2,
+                     sum(e.device_time_total for e in ks) / 2e3)
+        print(f"  {ms:8.3f} ms a replay, {out[name][1]:7.0f} kernels, "
+              f"{out[name][2]:8.3f} ms summed kernel time  {name}",
+              flush=True)
+    return out
 
 
 def main() -> int:
@@ -387,7 +611,6 @@ def main() -> int:
     from dani_slam_tpu_torch.core import state as mstate
     from dani_slam_tpu_torch.ops import kernels
     from dani_slam_tpu_torch.utils import device as devmod
-    from dani_slam_tpu_torch.utils import eval as ev
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -447,45 +670,55 @@ def main() -> int:
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
               f"({k['bound_by']})", flush=True)
 
-    phase("3. main path: 60-frame 640x480 detector-on RGB-D sequence")
+    phase("3. main path: 60-frame 640x480 detector-on RGB-D sequence, "
+          "matcher='auto', pipelined=True")
+    from dani_slam_tpu_torch.models import lightglue
     caps = mstate.MapCaps()
     n_frames, W, H, f = 60, 640, 480, 500.0
     t0 = time.perf_counter()
     seq = make_sequence(n_frames, W, H, f, 0.35)
     print(f"rendered {n_frames} frames in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    _, n_ok_w, dt_w = run_system("cuda", caps, 1024, seq, W, H, f)
-    print(f"warm-up pass: {n_ok_w}/{n_frames} tracked in {dt_w:.2f} s",
-          flush=True)
+    _, n_ok_w, dt_w = run_system("cuda", caps, 1024, seq, W, H, f, NEW)
+    print(f"warm-up pass (captures the frame graph): {n_ok_w}/{n_frames} "
+          f"tracked in {dt_w:.2f} s", flush=True)
     kernels.reset_launch_counts()
-    devmod.SYNCS.count = 0
-    sys_, n_ok, dt = run_system("cuda", caps, 1024, seq, W, H, f)
+    lightglue.FORWARDS.count = 0
+    devmod.SYNCS.count = devmod.ASYNC.ready = devmod.ASYNC.waited = 0
+    sys_, n_ok, dt = run_system("cuda", caps, 1024, seq, W, H, f, NEW)
     launches = kernels.launch_counts()
-    syncs = devmod.SYNCS.count
+    lg_forwards = lightglue.FORWARDS.count
+    syncs, ready, waited = (devmod.SYNCS.count, devmod.ASYNC.ready,
+                            devmod.ASYNC.waited)
+    tr = sys_.tracker
     n_kf, n_lm = sys_.n_keyframes(), sys_.n_landmarks()
-    dyn = float(sys_.tracker.dynamic_ratio)
-    traj = sys_.tracker.trajectory
-    C_est = centers(traj)
-    R_gt, t_gt = seq[0], seq[1]
-    idx = np.round(np.asarray([tm for tm, _, _ in traj]) * 30).astype(int)
-    C_gt = ev.centers_from_tcw(R_gt[idx], t_gt[idx])
-    ate = ev.ate_rmse(C_est, C_gt)
-    print(f"timed pass: tracked {n_ok}/{n_frames}, {n_kf} keyframes, "
-          f"{n_lm} landmarks, last dyn_ratio {dyn:.3f}, "
-          f"{n_frames / dt:.2f} FPS ({1e3 * dt / n_frames:.1f} ms/frame), "
-          f"{syncs / n_frames:.2f} host syncs/frame, ATE {ate:.4f} m, "
-          f"launches {launches}", flush=True)
+    dyn = float(tr.dynamic_ratio)
+    C_est, ate = trajectory_ate(sys_, seq)
+    print(f"timed pass: tracked {n_ok}/{n_frames}, {n_kf} keyframes "
+          f"({sys_._kf_count} keyframe steps), {n_lm} landmarks, last "
+          f"dyn_ratio {dyn:.3f}, {n_frames / dt:.2f} FPS "
+          f"({1e3 * dt / n_frames:.1f} ms/frame), {syncs / n_frames:.2f} "
+          f"blocking host syncs/frame, {(ready + waited) / n_frames:.2f} "
+          f"asynchronous reads/frame of which {waited} of {ready + waited} "
+          f"had to wait, {tr.graph_replays} graph replays, "
+          f"{tr.eager_frames} eager image frames, {tr.rollbacks} rollbacks, "
+          f"ATE {ate:.4f} m, launches {launches}, LightGlue forwards "
+          f"{lg_forwards}", flush=True)
     checks = {
         "tracked >= 51/60": n_ok >= 0.85 * n_frames,
         "keyframes >= 5": n_kf >= 5,
         "landmarks >= 1000": n_lm >= 1000,
         "detector fired": dyn > 0.0,
         "poses finite": bool(np.all(np.isfinite(C_est))) and
-        C_est.shape == (len(traj), 3),
+        C_est.shape == (len(tr.trajectory), 3),
         "ATE < 0.25 m": ate < 0.25,
-        "window_match_topk2 launched": launches["window_match_topk2"] > 0,
+        "graph replays >= 50": tr.graph_replays >= 50,
+        "blocking syncs/frame < 2.33": syncs / n_frames < 2.33,
+        "window_match_topk2 ran on every tracked frame":
+        launches["window_match_topk2"] >= tr.graph_replays > 0,
         "lba_landmark_blocks launched": launches["lba_landmark_blocks"] > 0,
         "lba_plan launched": launches["lba_plan"] > 0,
+        "LightGlue forwards > 0": lg_forwards > 0,
     }
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -501,23 +734,94 @@ def main() -> int:
           f"solve): (plan + n * kernel) / n = {k2['amortised_ms']:.4f} ms a "
           f"launch", flush=True)
 
-    phase("4. small input: CPU (plain versions) vs card")
+    # a cut in the stream: the map goes into the Atlas, tracking restarts
+    imgs, deps, times = frames_on("cuda", seq)
+    states = [sys_.track_rgbd(imgs[i], deps[i], 100.0 + times[i])[0]
+              for i in range(52, 60)]
+    sys_.shutdown()
+    _sync()
+    print(f"timestamp jump of 100 s: atlas holds {sys_.atlas.n_maps()} map "
+          f"of {int(sys_.atlas.stored[0]['st'].kf_mask.sum())} keyframes; "
+          f"new map: states {states}, {sys_.n_keyframes()} keyframes, "
+          f"{sys_.n_landmarks()} landmarks", flush=True)
+    if sys_.atlas.n_maps() != 1 or states.count("OK") < 7 or \
+            sys_.n_landmarks() < 200:
+        raise SystemExit("timestamp jump: no stashed map, or the new map "
+                         "does not track")
+
+    phase("4. earlier path, 20 frames: matcher=None, pipelined=False")
+    n_old = 20
+    kernels_before = kernels.launch_counts()
+    devmod.SYNCS.count = 0
+    so, n_ok_o, dt_o = run_system("cuda", caps, 1024, seq, W, H, f, OLD,
+                                  n_frames=n_old)
+    old_launches = {k: v - kernels_before[k]
+                    for k, v in kernels.launch_counts().items()}
+    _, ate_o = trajectory_ate(so, seq)
+    print(f"tracked {n_ok_o}/{n_old}, {so.n_keyframes()} keyframes, "
+          f"{so.n_landmarks()} landmarks, {n_old / dt_o:.2f} FPS "
+          f"({1e3 * dt_o / n_old:.1f} ms/frame, no warm-up pass), "
+          f"{devmod.SYNCS.count / n_old:.2f} blocking host syncs/frame, "
+          f"ATE {ate_o:.4f} m, launches {old_launches}", flush=True)
+    if n_ok_o < 17 or so.n_keyframes() < 2 or so.n_landmarks() < 500 or \
+            ate_o >= 0.25 or min(old_launches.values()) <= 0 or \
+            old_launches["window_match_topk2"] != n_old - 1:
+        raise SystemExit("earlier-path checks failed")
+
+    phase("5. held against each other")
     small = make_sequence(4, 320, 240, 300.0, 0.35 * 4 / 60)
     caps_s = mstate.MapCaps(K=32, L=4096, N=256, D=256)
-    sc, n_c, _ = run_system("cpu", caps_s, 256, small, 320, 240, 300.0)
-    sg, n_g, _ = run_system("cuda", caps_s, 256, small, 320, 240, 300.0)
+    sc, n_c, _ = run_system("cpu", caps_s, 256, small, 320, 240, 300.0, OLD)
+    sg, n_g, _ = run_system("cuda", caps_s, 256, small, 320, 240, 300.0, OLD)
     dC = np.abs(centers(sc.tracker.trajectory) -
                 centers(sg.tracker.trajectory)).max()
-    print(f"cpu {n_c}/4 tracked, {sc.n_keyframes()} kf, {sc.n_landmarks()} "
-          f"lm; card {n_g}/4, {sg.n_keyframes()} kf, {sg.n_landmarks()} lm; "
-          f"max camera-centre difference {dC:.2e} m (limit 5e-2)",
-          flush=True)
+    print(f"small input: cpu {n_c}/4 tracked, {sc.n_keyframes()} kf, "
+          f"{sc.n_landmarks()} lm; card {n_g}/4, {sg.n_keyframes()} kf, "
+          f"{sg.n_landmarks()} lm; max camera-centre difference {dC:.2e} m "
+          f"(limit 5e-2)", flush=True)
     if n_c != 4 or n_g != 4 or dC > 5e-2:
         raise SystemExit("card and CPU disagree on the small input")
+    check_lightglue(W, H)
+    check_pipelined_vs_plain_features()
+    n_img = 30
+    sp, _, _ = run_system("cuda", caps, 1024, seq, W, H, f,
+                          dict(matcher="auto", pipelined=False),
+                          n_frames=n_img)
+    C_plain, ate_plain = trajectory_ate(sp, seq)
+    m = min(len(C_plain), len(C_est))
+    d_img = float(np.linalg.norm(C_plain[:m] - C_est[:m], axis=1).max())
+    print(f"pipelined vs non-pipelined on the first {n_img} image frames "
+          f"(matcher='auto' both): {sp.n_keyframes()} keyframes "
+          f"non-pipelined, centres within {d_img:.4f} m (limit 0.15: "
+          f"keyframes land on other frames, and either run is "
+          f"{ate_plain:.3f} / {ate:.3f} m from the truth)", flush=True)
+    if m < 0.85 * n_img or d_img >= 0.15:
+        raise SystemExit("pipelined and non-pipelined image runs differ")
+    n_cmp = 8
+    sa, _, dt_g = run_system("cuda", caps, 1024, seq, W, H, f, NEW,
+                             n_frames=n_cmp, frame_graph=True)
+    sb, _, dt_e = run_system("cuda", caps, 1024, seq, W, H, f, NEW,
+                             n_frames=n_cmp, frame_graph=False)
+    Ta, Tb = sa.tracker.trajectory, sb.tracker.trajectory
+    d_pose = max(float(np.abs(a[1] - b[1]).max()) +
+                 float(np.abs(a[2] - b[2]).max()) for a, b in zip(Ta, Tb))
+    same_bind = bool(torch.equal(sa.tracker.last_bind, sb.tracker.last_bind))
+    print(f"graph replay vs eager fused function, {n_cmp} frames: "
+          f"{sa.tracker.graph_replays} replays against "
+          f"{sb.tracker.eager_frames} eager frames, poses within "
+          f"{d_pose:.2e} (limit 1e-5), last bindings equal: {same_bind}, "
+          f"{1e3 * dt_g / n_cmp:.0f} against {1e3 * dt_e / n_cmp:.0f} "
+          f"ms/frame", flush=True)
+    if len(Ta) != len(Tb) or d_pose > 1e-5 or not same_bind or \
+            sa.tracker.graph_replays != n_cmp - 2 or \
+            sb.tracker.graph_replays != 0:
+        raise SystemExit("graph replay and eager fused function differ")
     _sync()
 
-    phase("5. where the time goes: torch.profiler over frames 20..25")
+    phase("6. where the time goes: torch.profiler over frames 20..25 of the "
+          "main path; the frame program and its parts")
     profile_main_path(caps, seq, 20, 6, W, H, f)
+    candidate_costs(W, H)
 
     kernels_out = [
         dict(name="window_match_topk2", route="cuda",

@@ -121,3 +121,25 @@ def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     """Project a near-rotation back onto SO(3) via a quaternion round trip
     (f32 pose-velocity feedback otherwise amplifies det(R) drift)."""
     return quat_to_mat(mat_to_quat(R))
+
+
+# ---------------------------------------------------------------------------
+# Sim(3) as (R, t, s) triples: action p -> s R p + t
+# ---------------------------------------------------------------------------
+
+def sim3_inv(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return (Rt, -s_inv[..., None] * torch.einsum('...ij,...j->...i', Rt, t),
+            s_inv)
+
+
+def sim3_mul(Ra, ta, sa, Rb, tb, sb):
+    """(Ra,ta,sa) * (Rb,tb,sb): action p -> sa Ra (sb Rb p + tb) + ta."""
+    return (Ra @ Rb,
+            sa[..., None] * torch.einsum('...ij,...j->...i', Ra, tb) + ta,
+            sa * sb)
+
+
+def sim3_apply(R, t, s, p):
+    return s[..., None] * torch.einsum('...ij,...j->...i', R, p) + t

@@ -19,6 +19,13 @@ def _dump_idx(ids: torch.Tensor, ok: torch.Tensor, size: int):
     return torch.where(ok, ids, torch.full_like(ids, size)).long()
 
 
+def row(t: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """t[k] for a 0-d index tensor k without a host read: plain indexing
+    turns a 0-d integer tensor into a Python int first, which waits for the
+    device (and cannot be captured in a CUDA graph)."""
+    return torch.index_select(t, 0, k.reshape(1).long()).squeeze(0)
+
+
 def set_rows(t: torch.Tensor, idx: torch.Tensor,
              rows: torch.Tensor) -> torch.Tensor:
     """Out-of-place `t.at[idx].set(rows)` with the reference's duplicate rule
@@ -37,7 +44,9 @@ def set_rows(t: torch.Tensor, idx: torch.Tensor,
 def id_mask(ids: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor:
     """Bool [size]: out[s] = any(ok & (ids == s))."""
     out = torch.zeros(size + 1, dtype=torch.bool, device=ids.device)
-    out[_dump_idx(ids, ok, size)] = True
+    # index_fill_ takes the value as a kernel argument; `out[idx] = True`
+    # would stage a host scalar tensor and copy it to the device
+    out.index_fill_(0, _dump_idx(ids, ok, size), True)
     return out[:size]
 
 

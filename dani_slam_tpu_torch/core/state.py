@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from dani_slam_tpu_torch.core import scatterless as sless
-from dani_slam_tpu_torch.utils.device import resolve_device
+from dani_slam_tpu_torch.utils.device import const, resolve_device
 
 
 class MapCaps(NamedTuple):
@@ -77,11 +77,12 @@ TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(MapState)
                       if f.name != "caps")
 
 # bit k of an int32 word (bit 31 is the sign bit: -2**31)
-_BITS_NP = np.left_shift(np.int32(1), np.arange(32, dtype=np.int32))
+_BITS = tuple(int(b) for b in
+              np.left_shift(np.int32(1), np.arange(32, dtype=np.int32)))
 
 
 def _bits(device) -> torch.Tensor:
-    return torch.from_numpy(_BITS_NP).to(device)
+    return const(_BITS, torch.int32, device)
 
 
 def empty_map(caps: MapCaps = MapCaps(), device="cuda") -> MapState:
@@ -147,6 +148,15 @@ def first_free_slot(mask: torch.Tensor) -> torch.Tensor:
                        torch.full_like(first, mask.shape[0] - 1))
 
 
+def free_slots(mask: torch.Tensor, count: int) -> torch.Tensor:
+    """Indices (int64) of the first `count` free slots in ascending order,
+    followed by occupied slots in ascending order once the free ones run
+    out."""
+    idx = torch.arange(mask.shape[0], device=mask.device)
+    key = torch.where(mask, mask.shape[0] + idx, idx)
+    return torch.argsort(key, stable=True)[:count]
+
+
 def num_keyframes(st: MapState) -> torch.Tensor:
     return torch.sum(st.kf_mask.to(torch.int32))
 
@@ -156,8 +166,15 @@ def num_landmarks(st: MapState) -> torch.Tensor:
 
 
 def _set(t: torch.Tensor, k: torch.Tensor, v) -> torch.Tensor:
+    """Out-of-place t[k] = v for a 0-d index tensor k, without reading k
+    back to the host (`out[k] = v` would): a tensor v is broadcast to one
+    row, a Python number goes in as a fill value."""
     out = t.clone()
-    out[k] = v
+    idx = k.reshape(1).long()
+    if isinstance(v, torch.Tensor):
+        out.index_copy_(0, idx, v.to(t.dtype).expand(t.shape[1:])[None])
+    else:
+        out.index_fill_(0, idx, v)
     return out
 
 
@@ -169,7 +186,8 @@ def _kf_bit_words(k: torch.Tensor, n_words: int) -> torch.Tensor:
     """[n_words] int32 (or [..., n_words] for batched k): bit k set."""
     k = k.long()
     ar = torch.arange(n_words, device=k.device)
-    bit = _bits(k.device)[k % 32]
+    bit = torch.index_select(_bits(k.device), 0,
+                             (k % 32).reshape(-1)).reshape(k.shape)
     return torch.where(ar == (k // 32)[..., None], bit[..., None],
                        torch.zeros((), dtype=torch.int32, device=k.device))
 
@@ -199,10 +217,11 @@ def insert_keyframe(st: MapState, R, t, time, frame_id, kp, kp_mask, desc,
     kf_lm = torch.where(kf_valid, st.obs_lm, torch.zeros_like(st.obs_lm))
     shared = torch.sum(seen[kf_lm.long()] & kf_valid, dim=1).to(torch.int32)
     shared = torch.where(st.kf_mask, shared, torch.zeros_like(shared))
-    covis = st.covis.clone()
-    covis[k, :] = shared
-    covis[:, k] = shared
-    covis[k, k] = 0
+    at_k = torch.arange(st.caps.K, device=k.device) == k
+    covis = torch.where(at_k[:, None], shared[None, :], st.covis)
+    covis = torch.where(at_k[None, :], shared[:, None], covis)
+    covis = torch.where(at_k[:, None] & at_k[None, :],
+                        torch.zeros_like(covis), covis)
     parent = torch.where(torch.any(shared > 0), torch.argmax(shared),
                          torch.full_like(k, -1)).to(torch.int32)
     dev = st.kf_R.device
@@ -213,9 +232,7 @@ def insert_keyframe(st: MapState, R, t, time, frame_id, kp, kp_mask, desc,
         kf_R=_set(st.kf_R, k, R),
         kf_t=_set(st.kf_t, k, t),
         kf_time=_set(st.kf_time, k, time),
-        kf_frame_id=_set(st.kf_frame_id, k,
-                         torch.as_tensor(frame_id, dtype=torch.int32,
-                                         device=dev)),
+        kf_frame_id=_set(st.kf_frame_id, k, frame_id),
         kf_kp=_set(st.kf_kp, k, kp),
         kf_kp_mask=_set(st.kf_kp_mask, k, kp_mask),
         kf_desc=_set(st.kf_desc, k, desc),
@@ -233,6 +250,34 @@ def insert_keyframe(st: MapState, R, t, time, frame_id, kp, kp_mask, desc,
         next_kf_counter=st.next_kf_counter + 1,
     )
     return st2, k
+
+
+def rebuild_obs_bits(st: MapState) -> MapState:
+    """Recompute lm_obs_bits exactly from the obs table (after an atlas
+    merge, where every source slot id moved): bit k of landmark l is set
+    when a live keyframe k holds l in its obs row. One scatter over the
+    [K, N] table into a bool [L, K] grid, packed into words."""
+    K, L = st.caps.K, st.caps.L
+    dev = st.obs_lm.device
+    n_words = st.lm_obs_bits.shape[1]
+    valid = (st.obs_lm >= 0) & st.kf_mask[:, None]
+    kf = torch.arange(K, device=dev)[:, None].expand_as(st.obs_lm)
+    flat = torch.where(valid, st.obs_lm.long() * K + kf,
+                       torch.full_like(kf, L * K))
+    grid = torch.zeros(L * K + 1, dtype=torch.bool, device=dev)
+    grid.index_fill_(0, flat.reshape(-1), True)
+    grid = grid[:L * K].reshape(L, K)
+    pad = n_words * 32 - K
+    if pad:
+        grid = torch.cat([grid, torch.zeros((L, pad), dtype=torch.bool,
+                                            device=dev)], dim=1)
+    bits = _bits(dev)
+    # disjoint bits: the int64 sum equals the OR, and fits back in int32
+    words = torch.sum(torch.where(grid.reshape(L, n_words, 32),
+                                  bits[None, None, :],
+                                  torch.zeros_like(bits)[None, None, :]),
+                      dim=2).to(torch.int32)
+    return dataclasses.replace(st, lm_obs_bits=words)
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +332,7 @@ def add_observations(st: MapState, kf, kp_idx, lm_idx, valid) -> MapState:
     N = st.obs_lm.shape[1]
     lm_safe = torch.where(valid, lm_idx, torch.zeros_like(lm_idx))
     new_row = sless.id_lookup(kp_idx, valid, lm_safe.to(torch.int32), N,
-                              st.obs_lm[kf])
+                              sless.row(st.obs_lm, kf))
     dn = sless.id_count(lm_safe, valid, st.caps.L)
     bits = _set_obs_bits(st.lm_obs_bits, kf,
                          sless.id_mask(lm_safe, valid, st.caps.L))
@@ -381,7 +426,8 @@ def replace_landmarks(st: MapState, kill, keep, valid) -> MapState:
 def best_covisible(st: MapState, k, n: int):
     """Top-n covisible keyframes of k by shared-observation count (stable
     order on ties, as the reference's argsort)."""
-    w = torch.where(st.kf_mask, st.covis[k], torch.full_like(st.covis[k], -1))
+    row = sless.row(st.covis, k)
+    w = torch.where(st.kf_mask, row, torch.full_like(row, -1))
     w = _set(w, k, -1)
     idx = torch.argsort(-w, stable=True)[:n]
     return idx, w[idx]

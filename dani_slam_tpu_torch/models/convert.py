@@ -66,3 +66,35 @@ def yolo_from_flax(model, params: dict):
             tree = tree[part]
         load_conv(mod, tree)
     return model
+
+
+def load_dense(lin: nn.Linear, tree: dict):
+    """Copy a Flax Dense's {'kernel' [in, out], 'bias'} into an nn.Linear
+    (weight [out, in])."""
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(
+            np.asarray(tree["kernel"], np.float32).T)))
+        lin.bias.copy_(torch.from_numpy(np.asarray(tree["bias"], np.float32)))
+
+
+def lightglue_from_flax(model, params: dict):
+    """Fill a models.lightglue.LightGlue from a Flax parameter tree
+    ({'params': {'in_proj', 'pos_freq' [2, head_dim/2], 'layer{i}':
+    {'self_attn': {'q','k','v','proj'}, 'self_mlp0a', ...}, 'final_proj0',
+    ...}}): the module paths are the tree paths, with 'layers.{i}' for
+    'layer{i}'."""
+    p = params["params"]
+    with torch.no_grad():
+        model.pos_freq.copy_(torch.from_numpy(
+            np.asarray(p["pos_freq"], np.float32)))
+    for name, mod in model.named_modules():
+        if not isinstance(mod, nn.Linear):
+            continue
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer{parts[1]}"] + parts[2:]
+        tree = p
+        for part in parts:
+            tree = tree[part]
+        load_dense(mod, tree)
+    return model

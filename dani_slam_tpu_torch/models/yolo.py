@@ -28,7 +28,7 @@ from torch import nn
 
 from dani_slam_tpu_torch.models import convert
 from dani_slam_tpu_torch.ops import image as image_ops
-from dani_slam_tpu_torch.utils.device import resolve_device
+from dani_slam_tpu_torch.utils.device import const, resolve_device
 
 WEIGHTS = os.path.join(os.path.dirname(__file__), "..", "..",
                        "dani_slam_tpu", "weights", "yolo_synthetic.npz")
@@ -140,10 +140,8 @@ def decode_predictions(outs, top_k: int = 256, anchors_per_scale=ANCHORS,
         p = torch.sigmoid(out)
         gy = torch.arange(H, dtype=torch.float32, device=dev)[:, None, None]
         gx = torch.arange(W, dtype=torch.float32, device=dev)[None, :, None]
-        aw = torch.tensor([a[0] for a in anchors], dtype=torch.float32,
-                          device=dev)
-        ah = torch.tensor([a[1] for a in anchors], dtype=torch.float32,
-                          device=dev)
+        aw = const(tuple(float(a[0]) for a in anchors), torch.float32, dev)
+        ah = const(tuple(float(a[1]) for a in anchors), torch.float32, dev)
         cx = (2 * p[..., 0] - 0.5 + gx) * stride
         cy = (2 * p[..., 1] - 0.5 + gy) * stride
         bw = (2 * p[..., 2]) ** 2 * aw
@@ -189,11 +187,14 @@ def nms(boxes, scores, cls, score_th=0.4, iou_th: float = 0.5,
     picks, oks = [], []
     for _ in range(max_det):
         b = torch.argmax(live)
-        ok = live[b] > 0
+        # b is a 0-d device tensor: gather/index_select keep it on the
+        # device, `live[b]` would read it back to the host
+        ok = torch.gather(live, 0, b[None])[0] > 0
         picks.append(torch.where(ok, b, torch.full_like(b, -1)))
         oks.append(ok)
-        live = torch.where(ok & suppress[b], torch.full_like(live, -1.0),
-                           live)
+        live = torch.where(
+            ok & torch.index_select(suppress, 0, b[None])[0],
+            torch.full_like(live, -1.0), live)
         live = live.index_fill(0, b[None], -1.0)
     keep_idx = torch.stack(picks)
     keep_ok = torch.stack(oks)
@@ -254,8 +255,7 @@ def _detect_program(model, img, ih: int, iw: int, score_th=0.4,
         outs = model(x)
     boxes, scores, cls = decode_predictions(outs, anchors_per_scale=anchors)
     b, s, c, ok = nms(boxes, scores, cls, score_th=score_th)
-    scale = torch.tensor([W / iw, H / ih, W / iw, H / ih],
-                         dtype=torch.float32, device=b.device)
+    scale = const((W / iw, H / ih, W / iw, H / ih), torch.float32, b.device)
     return b * scale, s, c, ok
 
 

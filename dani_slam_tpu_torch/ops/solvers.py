@@ -130,7 +130,7 @@ def pose_optimize(R0, t0, cam, pts_w, obs_xy, mask, inv_sigma2=None,
     inl = mask
     for rd_i in range(rounds):
         robust = rd_i < 2
-        lam = torch.tensor(1e-3, device=dev)
+        lam = torch.full((), 1e-3, device=dev)
         active = torch.ones((), dtype=torch.bool, device=dev)
         for _ in range(iters_per_round):
             R2, t2, lam2, done = lm_iter(R, t, lam, inl, robust)

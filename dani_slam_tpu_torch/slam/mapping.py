@@ -1,6 +1,6 @@
 """Local mapping: keyframe processing, landmark creation, fuse, local BA,
-culling (counterpart of dani_slam_tpu/slam/mapping.py; descriptor mutual-NN
-triangulation — the LightGlue branch comes with the matcher slice).
+culling (counterpart of dani_slam_tpu/slam/mapping.py; triangulation matches
+through LightGlue when a matcher is given, by descriptor mutual-NN otherwise).
 
 Mirrors the reference's LocalMapping pipeline per keyframe: insert ->
 landmarks from depth -> triangulation against covisible neighbors -> fuse
@@ -36,25 +36,61 @@ def _first_occurrence(keys: torch.Tensor) -> torch.Tensor:
 def create_new_landmarks(st: mstate.MapState, cam, kf_new,
                          n_neighbors: int = 5, th_desc: float = 0.7,
                          reproj_px: float = 2.0,
-                         min_parallax_cos: float = 0.99995):
+                         min_parallax_cos: float = 0.99995, matcher=None):
     """Triangulate new landmarks between kf_new and its best covisible
-    neighbors, batched over all pairs: mutual-NN on unbound keypoints,
+    neighbors, batched over all pairs: matches on unbound keypoints,
     midpoint triangulation with reprojection / parallax / depth gates, one
-    winning neighbor per keypoint, one masked insert."""
+    winning neighbor per keypoint (best quality), one masked insert.
+
+    With a matcher (models.lightglue.MatcherState) the wide-baseline
+    association is ONE batched LightGlue forward over the n_neighbors pairs,
+    on both sides compacted to their unbound keypoints (attention is
+    quadratic in tokens; Nc = max(N/2, 256) slots, overflow keypoints wait
+    for a later keyframe); otherwise descriptor mutual-NN."""
     nn = n_neighbors
     dev = st.kf_R.device
     neigh, w = mstate.best_covisible(st, kf_new, nn)
-    R1, t1 = st.kf_R[kf_new], st.kf_t[kf_new]
-    kp1, d1 = st.kf_kp[kf_new], st.kf_desc[kf_new]
+    R1, t1 = sless.row(st.kf_R, kf_new), sless.row(st.kf_t, kf_new)
+    kp1, d1 = sless.row(st.kf_kp, kf_new), sless.row(st.kf_desc, kf_new)
     N = kp1.shape[0]
-    unb1 = (st.obs_lm[kf_new] < 0) & st.kf_kp_mask[kf_new]
+    unb1 = (sless.row(st.obs_lm, kf_new) < 0) & \
+        sless.row(st.kf_kp_mask, kf_new)
     unb2 = (st.obs_lm[neigh] < 0) & st.kf_kp_mask[neigh]        # [nn,N]
     pair_ok = (w > 0) & st.kf_mask[neigh]
 
-    dmat = matching.desc_distance_matrix(d1, st.kf_desc[neigh])  # [nn,N,N]
-    m = matching.masked_match(dmat, unb1[None, :, None] & unb2[:, None, :],
-                              th=th_desc, mutual=True)
-    idxb, okb, quality = m.idx, m.ok, -m.dist
+    if matcher is not None:
+        from dani_slam_tpu_torch.models import lightglue as lg
+        Nc = max(N // 2, 256)
+        # unbound-first stable permutations, and kf_new's inverse
+        perm1 = torch.argsort((~unb1).to(torch.int8), stable=True)
+        sel1 = perm1[:Nc]
+        inv1 = torch.argsort(perm1, stable=True)                 # [N] pos
+        sel2 = torch.argsort((~unb2).to(torch.int8), dim=1,
+                             stable=True)[:, :Nc]                # [nn,Nc]
+        kp2n, d2n = st.kf_kp[neigh], st.kf_desc[neigh]
+        idxc, scorec, okc = lg.match_pairs(
+            matcher.model,
+            kp1[sel1].expand(nn, -1, -1), d1[sel1].expand(nn, -1, -1),
+            unb1[sel1].expand(nn, -1),
+            torch.gather(kp2n, 1, sel2[..., None].expand(-1, -1, 2)),
+            torch.gather(d2n, 1, sel2[..., None].expand(-1, -1,
+                                                        d2n.shape[-1])),
+            torch.gather(unb2, 1, sel2), cam.width, cam.height)
+        # back to FULL indexing: neighbor ids through sel2, query rows
+        # through each keypoint's position in the unbound-first permutation
+        idx_fullc = torch.gather(sel2, 1, torch.clamp(idxc, min=0).long())
+        g = torch.clamp(inv1, max=Nc - 1)                        # [N]
+        in1 = (inv1 < Nc) & unb1
+        idxb = idx_fullc[:, g]                                   # [nn,N]
+        okb = okc[:, g] & in1[None, :]
+        quality = torch.where(okb, scorec[:, g],
+                              torch.full_like(scorec[:, g], -float("inf")))
+    else:
+        dmat = matching.desc_distance_matrix(d1, st.kf_desc[neigh])
+        m = matching.masked_match(dmat,
+                                  unb1[None, :, None] & unb2[:, None, :],
+                                  th=th_desc, mutual=True)
+        idxb, okb, quality = m.idx, m.ok, -m.dist
 
     # batched two-view triangulation + gates over all pairs
     r1 = _cam.unproject(cam, kp1)
@@ -105,24 +141,24 @@ def create_depth_landmarks(st: mstate.MapState, cam, kf_new,
     """Landmarks from measured depth for unbound keypoints: every point
     closer than close_depth plus the closest remaining until max_create
     (reference: CreateNewKeyFrame's depth-sorted 100-point cap)."""
-    kp = st.kf_kp[kf_new]
-    depth = st.kf_depth[kf_new]
+    kp = sless.row(st.kf_kp, kf_new)
+    depth = sless.row(st.kf_depth, kf_new)
     N = kp.shape[0]
-    unb = (st.obs_lm[kf_new] < 0) & st.kf_kp_mask[kf_new]
+    unb = (sless.row(st.obs_lm, kf_new) < 0) & sless.row(st.kf_kp_mask, kf_new)
     good = unb & torch.isfinite(depth) & (depth > 0) & (depth < max_depth)
     order = torch.argsort(torch.where(good, depth,
                                       torch.full_like(depth, float("inf"))),
                           stable=True)
     rank = torch.argsort(order, stable=True)
     good = good & ((depth < close_depth) | (rank < max_create))
-    R1, t1 = st.kf_R[kf_new], st.kf_t[kf_new]
+    R1, t1 = sless.row(st.kf_R, kf_new), sless.row(st.kf_t, kf_new)
     Xc = _cam.unproject(cam, kp) * depth[:, None]
     Xw = lie.se3_apply(*lie.se3_inv(R1, t1), Xc)
     vnorm = Xw - (-torch.einsum('ji,j->i', R1, t1))
     dist = torch.clamp(torch.linalg.norm(vnorm, dim=-1), min=1e-9)
     st, slots = mstate.insert_landmarks(
-        st, Xw, st.kf_desc[kf_new], vnorm / dist[:, None], dist * 0.8,
-        dist * 1.3, torch.broadcast_to(kf_new, (N,)),
+        st, Xw, sless.row(st.kf_desc, kf_new), vnorm / dist[:, None],
+        dist * 0.8, dist * 1.3, torch.broadcast_to(kf_new, (N,)),
         torch.broadcast_to(st.next_kf_counter, (N,)), good)
     return mstate.add_observations(st, kf_new,
                                    torch.arange(N, device=kp.device), slots,
@@ -159,7 +195,7 @@ def fuse_into_neighbors(st: mstate.MapState, cam, kf_new,
         neigh = torch.cat([neigh, cand])
         pair_ok = torch.cat([pair_ok, cok])
 
-    obs_new = st.obs_lm[kf_new]
+    obs_new = sless.row(st.obs_lm, kf_new)
     has_lm = obs_new >= 0
     lm_ids = torch.where(has_lm, obs_new, torch.zeros_like(obs_new))
     li = lm_ids.long()
@@ -201,16 +237,17 @@ def fuse_into_neighbors(st: mstate.MapState, cam, kf_new,
     lm2 = torch.where(has_n, obs_n, torch.zeros_like(obs_n)).reshape(-1)
     l2 = lm2.long()
     has2 = has_n.reshape(-1) & st.lm_mask[l2]
-    word = st.lm_obs_bits[l2, kf_new // 32]
+    word = sless.row(st.lm_obs_bits.t(), kf_new // 32)[l2]
     has2 = has2 & (((word >> (kf_new % 32).to(torch.int32)) & 1) == 0)
     has2 = has2 & _first_occurrence(torch.where(has2, l2,
                                                 torch.full_like(l2, L)))
     xy2, vis2, _, _ = matching.project_landmarks(
-        st.kf_R[kf_new], st.kf_t[kf_new], cam, st.lm_pos[l2], has2)
-    unb_new = (obs_new < 0) & st.kf_kp_mask[kf_new]
+        sless.row(st.kf_R, kf_new), sless.row(st.kf_t, kf_new), cam,
+        st.lm_pos[l2], has2)
+    unb_new = (obs_new < 0) & sless.row(st.kf_kp_mask, kf_new)
     m2 = matching.fuse_candidates(xy2, vis2, st.lm_desc[l2],
-                                  st.kf_kp[kf_new], unb_new,
-                                  st.kf_desc[kf_new], radius=radius)
+                                  sless.row(st.kf_kp, kf_new), unb_new,
+                                  sless.row(st.kf_desc, kf_new), radius=radius)
     return mstate.add_observations(st, kf_new, m2.idx, lm2, m2.ok)
 
 
@@ -231,8 +268,8 @@ def _lba_window_select(st: mstate.MapState, center_kf, P_opt: int,
     lm_sel, loc_lm, loc_lm_valid, inv)."""
     L = st.caps.L
     dev = st.kf_R.device
-    wrow = torch.where(st.kf_mask, st.covis[center_kf],
-                       torch.full_like(st.covis[center_kf], -1))
+    crow = sless.row(st.covis, center_kf)
+    wrow = torch.where(st.kf_mask, crow, torch.full_like(crow, -1))
     wrow = mstate._set(wrow, center_kf, -1)
     top_idx = torch.argsort(-wrow, stable=True)[:P_opt - 1]
     opt_idx = torch.cat([center_kf.reshape(1), top_idx])
@@ -294,11 +331,11 @@ def local_bundle_adjustment(st: mstate.MapState, cam, center_kf,
     pose_fixed = torch.cat([origin_in_win,
                             torch.ones(P_fix, dtype=torch.bool, device=dev)])
     pose_fixed = mstate._set(pose_fixed, oldest_pos,
-                             pose_fixed[oldest_pos] | no_anchor)
+                             sless.row(pose_fixed, oldest_pos) | no_anchor)
     second_key = mstate._set(oldest_key, oldest_pos, K + 1)
     second_pos = torch.argmin(second_key)
     pose_fixed = mstate._set(pose_fixed, second_pos,
-                             pose_fixed[second_pos] | no_anchor)
+                             sless.row(pose_fixed, second_pos) | no_anchor)
 
     okf = torch.arange(P, device=dev).repeat_interleave(N)
     row_lm = st.obs_lm[all_idx].reshape(-1)
@@ -373,9 +410,10 @@ def cull_redundant_keyframes(st: mstate.MapState, center_kf,
         alive = base_ok & ~killed[neigh]
         fracs = torch.where(alive, frac, torch.full_like(frac, -1.0))
         i = torch.argmax(fracs)
-        k_i = neigh[i]
-        kill = fracs[i] >= redundancy
-        adj = adj + sless.id_count(obs_safe[k_i], obs_valid[k_i] & kill, L)
+        k_i = sless.row(neigh, i)
+        kill = sless.row(fracs, i) >= redundancy
+        adj = adj + sless.id_count(sless.row(obs_safe, k_i),
+                                   sless.row(obs_valid, k_i) & kill, L)
         killed = killed | (kill & (arangeK == k_i))
         kills.append(k_i)
         kflags.append(kill)
@@ -388,7 +426,7 @@ def cull_redundant_keyframes(st: mstate.MapState, center_kf,
         clear = clear | torch.where(kflags[i], words[i],
                                     torch.zeros_like(words[i]))
     for i in range(max_kills):
-        p_of_k = parents[kills[i]]
+        p_of_k = sless.row(parents, kills[i])
         parents = torch.where(kflags[i] & (parents == kills[i]), p_of_k,
                               parents)
         parents = torch.where(kflags[i] & (arangeK == kills[i]),
@@ -425,7 +463,7 @@ def keyframe_step(st: mstate.MapState, cam, feat_xy, feat_valid, feat_desc,
                   max_depth: float = 40.0, n_neighbors: int = 5,
                   feat_octave=None, chain=None, ba_iters: int = 5,
                   cull_redundancy: float = 0.9, cull_max_kills: int = 2,
-                  fuse_two_hop: int = 0):
+                  fuse_two_hop: int = 0, matcher=None):
     """Insert a keyframe and run the mapping pipeline (RGB-D). Returns
     (st, kf_slot, n_tracked, chain') where chain' re-anchors the tracker's
     pose chain (R_cur, t_cur, R_last, t_last) onto the BA-refined keyframe
@@ -437,7 +475,8 @@ def keyframe_step(st: mstate.MapState, cam, feat_xy, feat_valid, feat_desc,
                                    feat_valid, feat_desc, feat_depth, octave,
                                    bind)
     st = create_depth_landmarks(st, cam, k, max_depth=max_depth)
-    st = create_new_landmarks(st, cam, k, n_neighbors=n_neighbors)
+    st = create_new_landmarks(st, cam, k, n_neighbors=n_neighbors,
+                              matcher=matcher)
     if do_aux:
         st = fuse_into_neighbors(st, cam, k, n_neighbors=n_neighbors,
                                  n_neighbors2=fuse_two_hop)
@@ -450,7 +489,8 @@ def keyframe_step(st: mstate.MapState, cam, feat_xy, feat_valid, feat_desc,
     chain_out = None
     if chain is not None:
         R_cur, t_cur, R_last, t_last = chain
-        corr = lie.se3_mul(*lie.se3_inv(R, t), st.kf_R[k], st.kf_t[k])
+        corr = lie.se3_mul(*lie.se3_inv(R, t), sless.row(st.kf_R, k),
+                           sless.row(st.kf_t, k))
         R_c, t_c = lie.se3_mul(R_cur, t_cur, *corr)
         R_l, t_l = lie.se3_mul(R_last, t_last, *corr)
         chain_out = (R_c, t_c, R_l, t_l, corr[0], corr[1])

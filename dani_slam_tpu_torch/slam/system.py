@@ -1,11 +1,14 @@
 """System facade, RGB-D (counterpart of dani_slam_tpu/slam/system.py):
 construct, call track_rgbd per frame, save the trajectory, shutdown.
 
-This slice covers the non-pipelined RGB-D configuration with the descriptor
-mutual-NN matcher, no loop closing, no relocalization, no IMU and no Atlas:
-each frame runs the frontend, the tracker and — on a keyframe — the mapping
-step inline. Everything runs on `device` ("cuda" by default; asking for CUDA
-without it raises).
+The port covers the RGB-D configurations without loop closing,
+relocalization and IMU: plain or pipelined tracking, the LightGlue matcher
+(matcher="auto") or descriptor mutual-NN (matcher=None), dynamic-object
+masking, and an Atlas that stashes the map on an unrecoverable loss or a
+timestamp jump and starts a new one. Each frame runs the frontend and the
+tracker (one captured device program per tracked frame in pipelined mode on
+the card) and — on a keyframe — the mapping step inline. Everything runs on
+`device` ("cuda" by default; asking for CUDA without it raises).
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from dani_slam_tpu_torch.core import cameras as _cam
 from dani_slam_tpu_torch.core import lie
 from dani_slam_tpu_torch.core import state as mstate
 from dani_slam_tpu_torch.slam import mapping, tracking
+from dani_slam_tpu_torch.slam.atlas import Atlas
+from dani_slam_tpu_torch.slam.frame import FrameFeatures
 from dani_slam_tpu_torch.utils.device import pull, resolve_device
 
 
@@ -32,21 +37,25 @@ class Sensor(enum.Enum):
 
 class System:
     """Facade. `sp_params` is a models.superpoint.SuperPoint (the shipped
-    weights when None); `detector` a models.yolo.Detector or None."""
+    weights when None); `detector` a models.yolo.Detector or None; `matcher`
+    a models.lightglue.MatcherState, None (descriptor mutual-NN) or "auto"
+    (the shipped LightGlue when the descriptor dim is 256, else None);
+    `pipelined` defers each frame's lost/keyframe decision by
+    tracker.pipeline_depth frames."""
 
     def __init__(self, cam: _cam.Camera, sensor: Sensor = Sensor.RGBD,
                  caps: Optional[mstate.MapCaps] = None, sp_params=None,
                  n_features: int = 1024, enable_loop_closing: bool = False,
                  enable_relocalization: bool = False,
-                 pipelined: bool = False, detector=None, matcher=None,
+                 pipelined: bool = False, detector=None, matcher="auto",
                  device="cuda"):
         if sensor != Sensor.RGBD:
-            raise NotImplementedError("this slice of the port runs RGB-D")
-        if pipelined or matcher is not None or enable_loop_closing or \
-                enable_relocalization:
+            raise NotImplementedError("the port runs RGB-D so far")
+        if enable_loop_closing or enable_relocalization:
             raise NotImplementedError(
-                "pipelined tracking, LightGlue, loop closing and "
-                "relocalization come with later slices of the port")
+                "loop closing and relocalization (with map merging) are not "
+                "ported yet: pass enable_loop_closing=False, "
+                "enable_relocalization=False")
         self.device = resolve_device(device)
         # f32 SLAM geometry in full precision (the JAX package sets
         # jax_default_matmul_precision="highest"); bf16 stays only where
@@ -59,9 +68,12 @@ class System:
         self.cam = cam
         self.sensor = sensor
         self.caps = caps or mstate.MapCaps()
-        self.tracker = tracking.Tracker(cam, self.caps, sensor="rgbd")
+        self.tracker = tracking.Tracker(cam, self.caps, sensor="rgbd",
+                                        pipelined=pipelined)
         self.sp_params = sp_params
         self.n_features = n_features
+        # cleared by activate_localization_mode: keyframes are then dropped
+        self.enable_mapping = True
         self.aux_every = 2
         self.cull_redundancy = 0.9
         self.cull_max_kills = 4
@@ -75,49 +87,91 @@ class System:
         self._kf_pulls = []
         self._last_kf_fid = -10 ** 9
         self.kf_pull_depth = 4
+        self.deferred_kf = True
         self._last_ts = None
         self.max_time_jump = 1.0
         self.sp_threshold = 0.007
         self.detector = detector
+        if isinstance(matcher, str):
+            if matcher != "auto":
+                raise ValueError(f"matcher={matcher!r}: expected 'auto', "
+                                 "None or a MatcherState")
+            matcher = None
+            if self.caps.D == 256:
+                from dani_slam_tpu_torch.models import lightglue as lg
+                matcher = lg.load_default_matcher(cam.width, cam.height,
+                                                  device=self.device)
+        self.matcher = matcher
+        self.tracker.matcher = matcher
         self.tracker.pre_kf_decision = (
             lambda: self._resolve_kf_pull(force=False))
+        # multi-map Atlas: a new map on unrecoverable loss or a cut stream
+        self.atlas = Atlas(self.caps)
+        self.lost_frames_before_new_map = 30
+        self.min_kfs_to_stash = 5
 
     # -- frame entry point ------------------------------------------------
 
     def track_rgbd(self, img, depth, timestamp: float,
                    depth_factor: float = 5000.0):
         """RGB-D image pair in (img (H,W,3) uint8, depth (H,W) encoded),
-        T_cw out: detector -> frontend -> tracker -> mapping on a keyframe.
+        T_cw out: detector -> frontend -> tracker -> mapping on a keyframe;
+        in pipelined steady state the whole frame is one device program.
         Returns (state, R, t)."""
         tr = self.tracker
         tr.sp_params = self._sp()
-        if self._last_ts is not None and (
-                timestamp > self._last_ts + self.max_time_jump or
-                timestamp < self._last_ts):
-            if tr.state != tracking.NOT_INITIALIZED:
-                self._resolve_kf_pull()
-                self._new_map_in_atlas()
-        self._last_ts = timestamp
+        self._time_jump_guard(timestamp)
         img = torch.as_tensor(img, device=self.device)
         depth = torch.as_tensor(depth, device=self.device)
-        time = torch.tensor(timestamp, dtype=torch.float32,
-                            device=self.device)
+        # a fill on the device: no per-frame copy from pageable host memory
+        time = torch.full((), timestamp, dtype=torch.float32,
+                          device=self.device)
         state, R, t = tr.track_image_rgbd(
             img, depth, time, depth_factor, self.sp_threshold,
             detector=self.detector, n_max=self.n_features)
-        if tr.pending_kf is not None:
+        return self._after_track(state, R, t)
+
+    def track_features(self, feat: FrameFeatures, dyn_ratio=None,
+                       timestamp: Optional[float] = None):
+        """Pre-extracted RGB-D features in (custom frontends, tests).
+        dyn_ratio: device scalar in [0,1], the fraction of the image covered
+        by dynamic objects (keyframe veto above 0.8). timestamp: host-side
+        frame time for the timestamp-jump guard; no device pull is ever made
+        for it."""
+        if timestamp is not None:
+            self._time_jump_guard(timestamp)
+        self.tracker.dynamic_ratio = dyn_ratio
+        state, R, t = self.tracker.track(feat)
+        return self._after_track(state, R, t)
+
+    def _time_jump_guard(self, timestamp: float):
+        """A gap of more than max_time_jump seconds or a backwards step
+        means the stream was cut: stash the map and start a fresh one."""
+        if self._last_ts is not None and (
+                timestamp > self._last_ts + self.max_time_jump or
+                timestamp < self._last_ts):
+            if self.tracker.state != tracking.NOT_INITIALIZED:
+                self._resolve_kf_pull()
+                self._new_map_in_atlas()
+        self._last_ts = timestamp
+
+    def _after_track(self, state, R, t):
+        tr = self.tracker
+        if tr.pending_kf is not None and self.enable_mapping:
             self._resolve_kf_pull(force=False)
             self._keyframe_step()
-        if state == tracking.LOST and tr.frames_lost > 30:
+        if state == tracking.LOST and \
+                tr.frames_lost > self.lost_frames_before_new_map:
             self._new_map_in_atlas()
         return state, R, t
 
     def _new_map_in_atlas(self):
-        """Unrecoverable loss: there is no Atlas in this slice of the port,
-        so the old map is dropped and tracking restarts on a fresh one (the
-        reference package stashes maps with >= 5 keyframes in its Atlas)."""
-        self._resolve_kf_pull()
+        """Unrecoverable loss: stash the current map if it is substantial
+        (>= min_kfs_to_stash keyframes) and start a fresh one."""
+        self._resolve_kf_pull()   # stale pulls reference the OLD map
         tr = self.tracker
+        if self.n_keyframes() >= self.min_kfs_to_stash:
+            self.atlas.stash(tr.st)
         frame_id = tr.frame_id
         tr.reset()
         tr.frame_id = frame_id
@@ -146,14 +200,33 @@ class System:
             tr.st, self.cam, feat.xy, feat.valid, feat.desc, feat.depth,
             bind, R_kf, t_kf, feat.time, fid, do_ba=do_ba, do_aux=do_aux,
             max_depth=40.0, feat_octave=feat.octave_or_zeros(),
+            matcher=self.matcher,
             chain=(tr.R, tr.t, tr.R_last, tr.t_last), ba_iters=ba_iters,
             cull_redundancy=self.cull_redundancy,
             cull_max_kills=self.cull_max_kills, fuse_two_hop=two_hop)
         tr.st = st
         tr.ref_kf_dev = k
-        tr.R, tr.t, tr.R_last, tr.t_last = chain[:4]
+        tr.R, tr.t, tr.R_last, tr.t_last, cR, ct = chain
+        self._correct_pending_chain(cR, ct)
         tr.ref_kf_fid = fid
         self._kf_pulls.append((k, n_tracked, self._kf_count, tr.frame_id))
+        if self.atlas.n_maps() > 0 or not self.deferred_kf:
+            self._resolve_kf_pull()   # a map merge would need host ids now
+
+    def _correct_pending_chain(self, cR, ct):
+        """Apply a map-frame pose correction to the in-flight pipeline:
+        pending rollback snapshots and deferred keyframe poses must receive
+        the same correction as the tracker chain, or a rollback would undo
+        the re-anchoring."""
+        tr = self.tracker
+        fix = tracking.apply_chain_correction
+        fixed = []
+        for (read, pfeat, pbind, fpose, snap) in tr._pending:
+            sR, st_, sRl, stl = snap[:4]
+            fixed.append((read, pfeat, pbind, fix(*fpose, cR, ct),
+                          fix(sR, st_, cR, ct) + fix(sRl, stl, cR, ct) +
+                          tuple(snap[4:])))
+        tr._pending = fixed
 
     def _resolve_kf_pull(self, force: bool = True):
         """Pull deferred keyframe ids once they are kf_pull_depth frames
@@ -185,9 +258,23 @@ class System:
 
     def shutdown(self):
         self._resolve_kf_pull()
-        if self.tracker.pending_kf is not None:
+        self.tracker.flush()
+        if self.tracker.pending_kf is not None and self.enable_mapping:
             self._keyframe_step()
         self._resolve_kf_pull()
+
+    def activate_localization_mode(self):
+        """Track against the existing map without extending it (mapping
+        steps are skipped; outside the mapped region the tracker falls back
+        to visual odometry on the last frame's depth points)."""
+        self.enable_mapping = False
+        self.tracker.localization_vo = True
+
+    def deactivate_localization_mode(self):
+        """Resume full SLAM."""
+        self.enable_mapping = True
+        self.tracker.localization_vo = False
+        self.tracker.pending_kf = None   # drop any stale pending keyframe
 
     def save_trajectory_tum(self, path: str):
         """TUM format: time tx ty tz qx qy qz qw of T_wc."""

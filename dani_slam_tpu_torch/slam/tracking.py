@@ -1,17 +1,30 @@
 """Tracking: per-frame state machine and device steps, RGB-D (counterpart of
-dani_slam_tpu/slam/tracking.py for the non-pipelined RGB-D path).
+dani_slam_tpu/slam/tracking.py for the RGB-D path, plain and pipelined).
 
 Covered reference behaviors (src/Tracking.cc): StereoInitialization from
 depth, TrackWithMotionModel (window 15, widened to 30 on failure),
-TrackReferenceKeyFrame (descriptor mutual-NN), TrackLocalMap (covisible local
-map, target-side projected search through the window-match kernel),
-NeedNewKeyFrame / CreateNewKeyFrame.
+TrackReferenceKeyFrame (LightGlue when a matcher is given, descriptor
+mutual-NN otherwise), TrackLocalMap (covisible local map, target-side
+projected search through the window-match kernel), NeedNewKeyFrame /
+CreateNewKeyFrame, localization-mode visual odometry on the last frame's
+depth points.
+
+Pipelined mode defers each frame's lost/keyframe decision by pipeline_depth
+frames: the tracker state advances optimistically from device references,
+the frame's counts start an asynchronous copy to the host, and the decision
+is taken when that copy has long finished; a lost frame rolls the state back
+to its snapshot. On the image path a tracked frame is one function with no
+host read inside (rgbd_frame_fused), run as a captured CUDA graph on the
+card (slam/framegraph.py).
 
 Translation notes:
   * the JAX package's lax.cond fallbacks inside track_frame_step (widened
-    motion-model search, reference-keyframe tracking) are host branches on
-    an inlier count here; every such pull goes through utils.device.pull,
-    which counts it;
+    motion-model search, reference-keyframe tracking) exist in two forms
+    here. select_on_device=False: host branches on an inlier count, each a
+    counted blocking pull (the non-pipelined path). select_on_device=True:
+    all three candidates are computed and torch.where picks by the same
+    predicates — what lax.cond of pure functions computes — so a frame
+    holds no host read and can be captured;
   * lax.reduce(..., bitwise_or) over observer words has no torch
     counterpart: the [N, K/32] int32 words are unpacked to bool [N, K] with
     shifts and `& 1` (int32 `>>` is arithmetic, so the mask after the shift
@@ -33,7 +46,7 @@ from dani_slam_tpu_torch.core import lie, scatterless as sless
 from dani_slam_tpu_torch.core import state as mstate
 from dani_slam_tpu_torch.ops import matching, solvers
 from dani_slam_tpu_torch.slam.frame import FrameFeatures
-from dani_slam_tpu_torch.utils.device import pull
+from dani_slam_tpu_torch.utils.device import AsyncRead, pull
 
 SCALE_FACTOR = 1.2
 LQ = 4096          # compacted local-map query capacity
@@ -108,26 +121,64 @@ def track_motion_model(st: mstate.MapState, cam, feat: FrameFeatures,
 
 
 def track_reference_keyframe(st: mstate.MapState, cam, feat: FrameFeatures,
-                             ref_kf, R0, t0,
-                             use_depth: bool = False) -> TrackStepOut:
-    """Match the frame against the reference keyframe's landmarks by
-    descriptor mutual-NN (reference: TrackReferenceKeyFrame; the LightGlue
-    branch comes with the matcher slice)."""
-    obs = st.obs_lm[ref_kf]
-    has = (obs >= 0) & st.kf_kp_mask[ref_kf]
+                             ref_kf, R0, t0, use_depth: bool = False,
+                             matcher=None) -> TrackStepOut:
+    """Match the frame against the reference keyframe's landmarks
+    (reference: TrackReferenceKeyFrame): with a matcher
+    (models.lightglue.MatcherState) LightGlue runs between the keyframe's
+    keypoints and the frame's, otherwise descriptor mutual-NN."""
+    obs = sless.row(st.obs_lm, ref_kf)
+    has = (obs >= 0) & sless.row(st.kf_kp_mask, ref_kf)
     lm_ids = torch.where(has, obs, torch.zeros_like(obs))
-    dmat = matching.desc_distance_matrix(st.lm_desc[lm_ids.long()],
-                                         feat.desc)
-    m = matching.masked_match(dmat, has[:, None] & feat.valid[None, :],
-                              th=matching.TH_HIGH, ratio=0.9, mutual=True)
-    m = matching.resolve_duplicate_targets(m, feat.xy.shape[0])
+    if matcher is not None:
+        from dani_slam_tpu_torch.models import lightglue as lg
+        idx, score, ok = lg.match_pair(
+            matcher.model, sless.row(st.kf_kp, ref_kf),
+            sless.row(st.kf_desc, ref_kf), has,
+            feat.xy, feat.desc, feat.valid, cam.width, cam.height)
+        m = matching.Matches(idx, 1.0 - score, ok)
+    else:
+        dmat = matching.desc_distance_matrix(st.lm_desc[lm_ids.long()],
+                                             feat.desc)
+        m = matching.masked_match(dmat, has[:, None] & feat.valid[None, :],
+                                  th=matching.TH_HIGH, ratio=0.9,
+                                  mutual=True)
+        m = matching.resolve_duplicate_targets(m, feat.xy.shape[0])
     bind = sless.id_max(m.idx, m.ok, lm_ids, feat.xy.shape[0], -1)
     return _optimize_with_bindings(st, cam, feat, bind, R0, t0, use_depth)
 
 
+def track_last_frame_vo(cam, last_xy, last_desc, last_depth, last_valid,
+                        R_last, t_last, feat: FrameFeatures, R_pred, t_pred,
+                        radius: float = 15.0, use_depth: bool = True):
+    """Pure visual odometry against TEMPORAL points from the last frame's
+    depth — localization mode's lifeline outside the mapped region
+    (reference: UpdateLastFrame + TrackWithMotionModel in mbVO mode).
+    Returns (R, t, n_inliers)."""
+    good = last_valid & torch.isfinite(last_depth) & (last_depth > 0)
+    Xc = _cam.unproject(cam, last_xy) * last_depth[:, None]
+    Xw = lie.se3_apply(*lie.se3_inv(R_last, t_last), Xc)
+    xy, vis, _, _ = matching.project_landmarks(R_pred, t_pred, cam, Xw, good)
+    m = matching.search_by_projection(xy, vis, last_desc, feat.xy,
+                                      feat.valid, feat.desc, radius=radius)
+    res = solvers.pose_optimize(
+        R_pred, t_pred, cam, Xw, feat.xy[m.idx], m.ok,
+        obs_depth=feat.depth[m.idx] if use_depth else None,
+        use_depth=use_depth)
+    return res.R, res.t, res.n_inliers
+
+
 def _ref_pose(st: mstate.MapState, k):
     """Reference keyframe pose gather."""
-    return st.kf_R[k], st.kf_t[k]
+    return sless.row(st.kf_R, k), sless.row(st.kf_t, k)
+
+
+def apply_chain_correction(R, t, corr_R, corr_t):
+    """Right-compose a map-frame correction onto a stored pose: keeps the
+    pipelined mode's rollback snapshots and deferred keyframe poses
+    consistent with a re-anchored pose chain (a rollback restoring
+    pre-correction poses would undo the re-anchoring)."""
+    return lie.se3_mul(R, t, corr_R, corr_t)
 
 
 def _observer_keyframes(st: mstate.MapState, bind, has) -> torch.Tensor:
@@ -194,33 +245,88 @@ def track_local_map(st: mstate.MapState, cam, feat: FrameFeatures, bind,
 def track_frame_step(st: mstate.MapState, cam, feat: FrameFeatures,
                      last_bind, R_cur, t_cur, Rv, tv, ref_kf,
                      min_inliers: int = 10, use_depth: bool = False,
-                     has_vel: bool = True, seed_rounds: int = 2):
+                     has_vel: bool = True, seed_rounds: int = 2,
+                     matcher=None, select_on_device: bool = False):
     """Motion-model track (widened on failure) -> reference-KF fallback ->
-    local-map track. The two fallbacks are host branches on the inlier
-    count (one counted pull each). Returns (R, t, bind, counts [4], st)."""
+    local-map track. select_on_device=False takes the two fallbacks as host
+    branches on the inlier count (one counted pull each);
+    select_on_device=True computes all three candidates and selects with
+    torch.where, with no host read. Returns (R, t, bind, counts [4], st)."""
     if has_vel:
         R_pred, t_pred = lie.se3_mul(Rv, tv, R_cur, t_cur)
     else:
         R_pred, t_pred = R_cur, t_cur
-    out = track_motion_model(st, cam, feat, last_bind, R_pred, t_pred,
-                             radius=15.0, use_depth=use_depth,
-                             rounds=seed_rounds)
-    if int(pull(out.n_inliers)) < min_inliers:
-        out = track_motion_model(st, cam, feat, last_bind, R_pred, t_pred,
-                                 radius=30.0, use_depth=use_depth,
-                                 rounds=seed_rounds)
+
+    def motion(radius):
+        return track_motion_model(st, cam, feat, last_bind, R_pred, t_pred,
+                                  radius=radius, use_depth=use_depth,
+                                  rounds=seed_rounds)
+
+    def refkf():
+        return track_reference_keyframe(st, cam, feat, ref_kf, R_cur, t_cur,
+                                        use_depth=use_depth, matcher=matcher)
+
+    out = motion(15.0)
+    if select_on_device:
+        def pick(take_b, a, b):
+            return tuple(torch.where(take_b, y, x) for x, y in zip(a, b))
+
+        def parts(o):
+            return o.R, o.t, o.bindings, o.n_inliers
+
+        first = parts(out)
+        sel1 = pick(first[3] < min_inliers, first, parts(motion(30.0)))
+        R2, t2, b2, n2 = pick(sel1[3] < min_inliers, sel1, parts(refkf()))
+    else:
         if int(pull(out.n_inliers)) < min_inliers:
-            out = track_reference_keyframe(st, cam, feat, ref_kf, R_cur,
-                                           t_cur, use_depth=use_depth)
-    n2 = out.n_inliers
-    out3 = track_local_map(st, cam, feat, out.bindings, out.R, out.t,
-                           use_depth=use_depth)
+            out = motion(30.0)
+            if int(pull(out.n_inliers)) < min_inliers:
+                out = refkf()
+        R2, t2, b2, n2 = out.R, out.t, out.bindings, out.n_inliers
+    out3 = track_local_map(st, cam, feat, b2, R2, t2, use_depth=use_depth)
     R3 = lie.orthonormalize(out3.R)
     close = feat.valid & torch.isfinite(feat.depth) & (feat.depth > 0)
     bound = out3.bindings >= 0
     counts = torch.stack([n2, out3.n_inliers, torch.sum(bound & close),
                           torch.sum(~bound & close)]).to(torch.int32)
     return R3, out3.t, out3.bindings, counts, out3.st
+
+
+def rgbd_frame_fused(sp_model, img, depth_img, cam, time, depth_factor,
+                     threshold, st: mstate.MapState, last_bind, R_cur, t_cur,
+                     Rv, tv, ref_kf, n_max: int = 1024, min_inliers: int = 10,
+                     has_vel: bool = True, matcher=None, detector=None,
+                     seed_rounds: int = 2):
+    """The whole per-frame pipeline as one function with no host read
+    inside: (YOLO dynamic masking ->) SuperPoint frontend -> track step with
+    the fallbacks selected on the device -> next velocity -> reference-KF
+    pose gather. The keyframe-decision scalars ride along with the counts:
+    counts6 = the four counts, int(dyn_ratio * 1000) and the live keyframe
+    count.
+
+    Returns (feat, R, t, bind, counts6, st2, (Rv', tv'), (R_ref, t_ref),
+    dyn_ratio)."""
+    from dani_slam_tpu_torch.slam import frame as frame_mod
+
+    boxes = box_mask = None
+    if detector is not None:
+        boxes, box_mask, dyn_ratio = detector.dynamic_mask_inputs(img)
+    else:
+        dyn_ratio = torch.zeros((), dtype=torch.float32, device=img.device)
+    feat = frame_mod._frame_rgbd_program(
+        sp_model, img, depth_img, cam, time, depth_factor, threshold, boxes,
+        box_mask, n_max=n_max)
+    R3, t3, bind, counts, st2 = track_frame_step(
+        st, cam, feat, last_bind, R_cur, t_cur, Rv, tv, ref_kf,
+        min_inliers=min_inliers, use_depth=True, has_vel=has_vel,
+        seed_rounds=seed_rounds, matcher=matcher, select_on_device=True)
+    # velocity for the next frame: T_new o T_cur^-1
+    vel2 = lie.se3_mul(R3, t3, *lie.se3_inv(R_cur, t_cur))
+    counts6 = torch.cat([counts, torch.stack([
+        (dyn_ratio * 1000.0).to(torch.int32),
+        torch.sum(st2.kf_mask.to(torch.int32))]).to(torch.int32)])
+    return (feat, R3, t3, bind, counts6, st2, vel2,
+            _ref_pose(st2, ref_kf), dyn_ratio)
 
 
 # ---------------------------------------------------------------------------
@@ -234,16 +340,22 @@ LOST = "LOST"
 
 
 class Tracker:
-    """Host state machine driving the device steps (RGB-D, non-pipelined:
-    each frame's lost/keyframe decision is taken right after its counts
-    pull). The System runs the mapping step after a keyframe is created."""
+    """Host state machine driving the device steps (RGB-D). The System runs
+    the mapping step after a keyframe is created.
+
+    pipelined=False: each frame's lost/keyframe decision is taken right
+    after a blocking pull of its counts. pipelined=True: decisions are
+    deferred by pipeline_depth frames (see the module docstring); on the
+    image path a tracked frame with a velocity is one captured graph replay
+    on a CUDA device (frame_graph; set it False to run the same function
+    eagerly), and the eager fused function otherwise."""
 
     def __init__(self, cam: _cam.Camera, caps: mstate.MapCaps = None,
                  sensor: str = "rgbd", min_inliers_track: int = 10,
                  min_inliers_map: int = 20,
                  kf_tracked_ratio: float = 0.75,
                  max_frames_between_kf: int = 15,
-                 min_frames_between_kf: int = 0):
+                 min_frames_between_kf: int = 0, pipelined: bool = False):
         if sensor != "rgbd":
             raise NotImplementedError(
                 "this slice of the port tracks RGB-D only")
@@ -257,16 +369,33 @@ class Tracker:
         self.kf_tracked_ratio = kf_tracked_ratio
         self.max_frames_between_kf = max_frames_between_kf
         self.min_frames_between_kf = min_frames_between_kf
+        self.pipelined = pipelined
         self.seed_rounds = 2
+        # optional models.lightglue.MatcherState: the matcher of the
+        # reference-keyframe fallback
+        self.matcher = None
         self.sp_params = None
+        # localization-mode visual odometry against last-frame depth points,
+        # set by System.activate_localization_mode
+        self.localization_vo = False
+        # host hook invoked before each keyframe decision (the System wires
+        # its deferred keyframe-pull resolver here)
         self.pre_kf_decision = None
+        self.pipeline_depth = 4    # frames in flight before resolving
+        self.frame_graph = self.device.type == "cuda"
+        self.graph_replays = 0
+        self.eager_frames = 0      # image-path frames run without a graph
+        self.rollbacks = 0         # deferred decisions that found a loss
         self.reset()
 
     def reset(self):
+        """A fresh map and per-map state; configuration and hooks survive
+        (the System keeps one Tracker across maps)."""
         dev = self.device
         self.st = mstate.empty_map(self.caps, device=dev)
         self.state = NOT_INITIALIZED
         self.frame_id = 0
+        self.last_feat = None
         self.last_bind = None
         self.R = torch.eye(3, device=dev)
         self.t = torch.zeros(3, device=dev)
@@ -278,16 +407,27 @@ class Tracker:
         self.ref_kf_dev = torch.zeros((), dtype=torch.int64, device=dev)
         self.ref_kf_tracked = 0
         self.pending_kf = None
+        # a map correction that landed DURING a keyframe decision, to be
+        # applied to the already-popped frame pose before _create_kf
+        self.pending_chain_corr = None
         self.last_kf_frame = -999
         self.frames_lost = 0
         self._traj_dev = []
         self._traj_host = []
+        self._pending = []         # deferred decisions (pipelined mode)
         self.dynamic_ratio = None
+        self._host_dyn_ratio = None   # host copies that rode along with the
+        self._host_n_kf = None        # counts of the fused image path
+
+    def flush(self):
+        """Resolve all deferred decisions (call before reading results)."""
+        self._resolve_pending(force=True)
 
     # -- public API -------------------------------------------------------
 
     def track(self, feat: FrameFeatures):
         """Process one frame; returns (state, R_cw, t_cw)."""
+        self._resolve_pending()
         if self.state == NOT_INITIALIZED:
             self._initialize(feat)
         else:
@@ -301,17 +441,55 @@ class Tracker:
 
     def track_image_rgbd(self, img, depth_img, time, depth_factor, threshold,
                          detector=None, n_max: int = 1024):
-        """Image-in RGB-D frame: (YOLO dynamic masking ->) SuperPoint
-        frontend -> track(). Returns (state, R, t)."""
+        """Image-in RGB-D frame. Steady state in pipelined mode: the fused
+        frame function (a graph replay on the card). Otherwise — not
+        pipelined, initialization, lost — the staged path: (YOLO dynamic
+        masking ->) SuperPoint frontend -> track(). Returns (state, R, t)."""
         from dani_slam_tpu_torch.slam import frame as frame_mod
-        boxes = bmask = None
+        if not (self.state == OK and self.pipelined):
+            boxes = bmask = None
+            if detector is not None:
+                boxes, bmask, self.dynamic_ratio = \
+                    detector.dynamic_mask_inputs(img)
+            feat = frame_mod._frame_rgbd_program(
+                self.sp_params, img, depth_img, self.cam, time, depth_factor,
+                threshold, boxes, bmask, n_max=n_max)
+            if self.pipelined:
+                self.eager_frames += 1
+            return self.track(feat)
+
+        # (a resolve that rolls back leaves RECENTLY_LOST behind; this frame
+        # then tracks optimistically from the restored state, as in the
+        # reference package)
+        self._resolve_pending()
+        has_vel = self.vel is not None
+        if self.frame_graph and has_vel:
+            from dani_slam_tpu_torch.slam import framegraph
+            out = framegraph.frame_graph(
+                self, img, depth_img, depth_factor, threshold, detector,
+                n_max).replay(self, img, depth_img, time)
+            self.graph_replays += 1
+        else:
+            dev = self.device
+            Rv, tv = self.vel if has_vel else (torch.eye(3, device=dev),
+                                               torch.zeros(3, device=dev))
+            out = rgbd_frame_fused(
+                self.sp_params, img, depth_img, self.cam, time, depth_factor,
+                threshold, self.st, self.last_bind, self.R, self.t, Rv, tv,
+                self.ref_kf_dev, n_max=n_max,
+                min_inliers=self.min_inliers_track, has_vel=has_vel,
+                matcher=self.matcher, detector=detector,
+                seed_rounds=self.seed_rounds)
+            self.eager_frames += 1
+        feat, R_new, t_new, bind, counts, st, vel2, ref_pose, dyn_ratio = out
         if detector is not None:
-            boxes, bmask, self.dynamic_ratio = \
-                detector.dynamic_mask_inputs(img)
-        feat = frame_mod._frame_rgbd_program(
-            self.sp_params, img, depth_img, self.cam, time, depth_factor,
-            threshold, boxes, bmask, n_max=n_max)
-        return self.track(feat)
+            self.dynamic_ratio = dyn_ratio
+        self._defer(feat, R_new, t_new, bind, counts, st, vel=vel2)
+        self.frame_id += 1
+        self._traj_dev.append((feat.time, self.R, self.t, ref_pose[0],
+                               ref_pose[1], self.ref_kf_dev,
+                               self.ref_kf_fid))
+        return self.state, self.R, self.t
 
     @property
     def trajectory(self):
@@ -348,6 +526,7 @@ class Tracker:
         dev = self.device
         self.R, self.t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
         self.R_last, self.t_last = self.R, self.t
+        self.last_feat = feat
         self.last_bind = bind
         self.ref_kf = k0_host
         self.ref_kf_fid = self.frame_id
@@ -368,30 +547,101 @@ class Tracker:
             self.st, self.cam, feat, self.last_bind, R_cur, t_cur, Rv, tv,
             self.ref_kf_dev, min_inliers=self.min_inliers_track,
             use_depth=self.use_depth, has_vel=has_vel,
-            seed_rounds=self.seed_rounds)
+            seed_rounds=self.seed_rounds, matcher=self.matcher,
+            select_on_device=self.pipelined)
+        if self.pipelined:
+            self._defer(feat, R_new, t_new, bind, counts, st)
+            return
         n_track, n, n_ct, n_cf = (int(x) for x in pull(counts))
         if n_track < self.min_inliers_track or n < self.min_inliers_map:
+            # localization mode outside the mapped region: frame-to-frame
+            # VO on the last frame's depth points
+            if self.localization_vo and self.last_feat is not None:
+                R_pred, t_pred = lie.se3_mul(Rv, tv, R_cur, t_cur) \
+                    if has_vel else (R_cur, t_cur)
+                lf = self.last_feat
+                R_vo, t_vo, n_vo = track_last_frame_vo(
+                    self.cam, lf.xy, lf.desc, lf.depth, lf.valid, self.R,
+                    self.t, feat, R_pred, t_pred, use_depth=self.use_depth)
+                if int(pull(n_vo)) >= self.min_inliers_track:
+                    self._apply_track(feat, R_vo, t_vo,
+                                      torch.full_like(bind, -1), self.st)
+                    return
             self._on_lost()
             return
         self._apply_track(feat, R_new, t_new, bind, st)
         if self._need_new_kf(n, n_ct, n_cf):
             self._create_kf(feat, bind, n_tracked_hint=n)
 
-    def _apply_track(self, feat, R_new, t_new, bind, st):
+    def _defer(self, feat, R_new, t_new, bind, counts, st, vel=None):
+        """Pipelined mode: update the state optimistically from device
+        references, start the asynchronous copy of the counts, and queue the
+        lost/keyframe decision with a rollback snapshot."""
+        snapshot = (self.R, self.t, self.R_last, self.t_last, self.vel,
+                    self.st, self.last_bind, self.last_feat)
+        read = AsyncRead(counts)
+        self._apply_track(feat, R_new, t_new, bind, st, vel=vel)
+        self._pending.append((read, feat, bind, (R_new, t_new), snapshot))
+
+    def _apply_track(self, feat, R_new, t_new, bind, st, vel=None):
         self.st = st
         self.state = OK
         self.frames_lost = 0
         # velocity T_new * T_last^-1 (reference mVelocity); R_new was
-        # re-orthonormalized on device so the feedback chain stays on SO(3)
-        self.vel = lie.se3_mul(R_new, t_new, *lie.se3_inv(self.R_last,
-                                                          self.t_last))
+        # re-orthonormalized on device so the feedback chain stays on SO(3).
+        # The fused frame function computes it itself and passes it in.
+        if vel is not None:
+            self.vel = vel
+        else:
+            self.vel = lie.se3_mul(R_new, t_new, *lie.se3_inv(self.R_last,
+                                                              self.t_last))
         self.R_last, self.t_last = R_new, t_new
         self.R, self.t = R_new, t_new
+        self.last_feat = feat
         self.last_bind = bind
 
+    def _resolve_pending(self, force: bool = False):
+        """Take deferred lost/keyframe decisions once their counts have had
+        pipeline_depth frames to reach the host (all of them when forced)."""
+        while self._pending and (force or
+                                 len(self._pending) > self.pipeline_depth):
+            read, feat, bind, frame_pose, snapshot = self._pending.pop(0)
+            vals = read.get()
+            n_track, n, n_ct, n_cf = (int(x) for x in vals[:4])
+            if len(vals) > 4:
+                # the fused image path: the keyframe-decision scalars rode
+                # along, so _need_new_kf reads host copies
+                self._host_dyn_ratio = float(vals[4]) / 1000.0
+                self._host_n_kf = int(vals[5])
+            else:
+                # feature path / recovery: cached fused-path values are
+                # stale (a lingering high ratio would veto every recovery
+                # keyframe, a stale count defeats the capacity veto)
+                self._host_dyn_ratio = None
+                self._host_n_kf = None
+            if n_track < self.min_inliers_track or n < self.min_inliers_map:
+                # roll back to before the failed frame, discarding the
+                # optimistic updates of the frames after it
+                (self.R, self.t, self.R_last, self.t_last, self.vel,
+                 self.st, self.last_bind, self.last_feat) = snapshot
+                for _ in range(len(self._pending) + 1):
+                    if self._traj_dev:
+                        self._traj_dev.pop()
+                self._pending.clear()
+                self.rollbacks += 1
+                self._on_lost()
+            elif self._need_new_kf(n, n_ct, n_cf):
+                if self.pending_chain_corr is not None:
+                    cR, ct = self.pending_chain_corr
+                    frame_pose = apply_chain_correction(
+                        frame_pose[0], frame_pose[1], cR, ct)
+                self._create_kf(feat, bind, pose=frame_pose,
+                                n_tracked_hint=n)
+            self.pending_chain_corr = None
+
     def _on_lost(self):
-        """No relocalization and no IMU in this slice: count the loss and
-        degrade RECENTLY_LOST -> LOST after 20 frames."""
+        """No relocalization and no IMU yet: count the loss and degrade
+        RECENTLY_LOST -> LOST after 20 frames."""
         self.frames_lost += 1
         if self.state == OK:
             self.state = RECENTLY_LOST
@@ -401,7 +651,9 @@ class Tracker:
     def _need_new_kf(self, n_tracked: int, n_close_tracked: int = 10 ** 9,
                      n_close_free: int = 0) -> bool:
         """Reference: NeedNewKeyFrame c1/c2 + close-point rule, dynamic
-        veto (ratio > 0.8) and keyframe-capacity veto."""
+        veto (ratio > 0.8) and keyframe-capacity veto. The two vetoes read
+        the host copies of the fused image path where there are any, and
+        pull the device scalars otherwise."""
         if self.pre_kf_decision is not None:
             self.pre_kf_decision()
         since = self.frame_id - self.last_kf_frame
@@ -416,16 +668,25 @@ class Tracker:
               max(self.ref_kf_tracked, 1)) or need_close
         if not (c1 or c2):
             return False
-        if self.dynamic_ratio is not None and \
-                float(pull(self.dynamic_ratio)) > 0.8:
+        dyn = self._host_dyn_ratio
+        if dyn is None and self.dynamic_ratio is not None:
+            dyn = float(pull(self.dynamic_ratio))
+        if dyn is not None and dyn > 0.8:
             return False
-        if int(pull(mstate.num_keyframes(self.st))) >= self.caps.K:
+        n_kf = self._host_n_kf
+        if n_kf is None:
+            n_kf = int(pull(mstate.num_keyframes(self.st)))
+        if n_kf >= self.caps.K:
             return False
         return True
 
-    def _create_kf(self, feat: FrameFeatures, bind, n_tracked_hint=None):
-        """Record the pending keyframe; the System runs the mapping step."""
+    def _create_kf(self, feat: FrameFeatures, bind, pose=None,
+                   n_tracked_hint=None):
+        """Record the pending keyframe; the System runs the mapping step.
+        `pose` is the tracked pose OF THAT FRAME: in pipelined mode the
+        tracker state has advanced past it by the pipeline depth."""
+        R_kf, t_kf = pose if pose is not None else (self.R, self.t)
         if n_tracked_hint is not None:
             self.ref_kf_tracked = int(n_tracked_hint)
-        self.pending_kf = (feat, bind, self.R, self.t)
+        self.pending_kf = (feat, bind, R_kf, t_kf)
         self.last_kf_frame = self.frame_id

@@ -1,7 +1,9 @@
-"""Synthetic RGB-D image sequences (counterpart of the image-sequence half of
-dani_slam_tpu/utils/synthetic.py), in numpy so that a run on the card needs
-no JAX: an orbit trajectory, rasterized textured corner spots with depth,
-and the moving warm textured board the shipped detector was trained on.
+"""Synthetic RGB-D sequences (counterpart of dani_slam_tpu/utils/synthetic.py),
+in numpy so that a run on the card needs no JAX: an orbit trajectory,
+rasterized textured corner spots with depth, the moving warm textured board
+the shipped detector was trained on, and feature-level frames of a random
+landmark cloud with unique descriptors (make_world / render_features), which
+exercise the SLAM layers without the learned frontend.
 The arithmetic follows the reference package's float32 steps so that the
 same seed renders the same frames (up to float rounding at the last bit).
 """
@@ -184,3 +186,46 @@ def make_rgbd_image_sequence(cam_params, width: int, height: int, R_gt, t_gt,
         deps.append(de.astype(np.uint16))
         times.append(i / fps)
     return imgs, deps, times
+
+
+def make_world(n_points: int = 2000, desc_dim: int = 64, seed: int = 0,
+               box=((-6.0, 6.0), (-4.0, 4.0), (-6.0, 6.0))):
+    """Random landmark cloud: (points [M,3] f32, unit descriptors [M,D]
+    f32, unique per landmark)."""
+    rng = np.random.RandomState(seed)
+    pts = np.stack([rng.uniform(lo, hi, n_points) for lo, hi in box],
+                   axis=1).astype(np.float32)
+    d = rng.randn(n_points, desc_dim).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return pts, d
+
+
+def render_features(world, cam_params, width: int, height: int, R_cw, t_cw,
+                    n_max: int = 512, noise_px: float = 0.3,
+                    desc_noise: float = 0.05, seed: int = 0):
+    """Observe the world from pose T_cw as pre-extracted RGB-D features:
+    numpy (xy [n_max,2], desc [n_max,D], depth [n_max] (inf = padding),
+    valid [n_max]) — up to n_max visible landmarks in shuffled order, pixel
+    and descriptor noise added, exact depth."""
+    pts, desc = world
+    rng = np.random.RandomState(seed)
+    pc = _apply(R_cw, t_cw, pts)
+    z = pc[:, 2]
+    xy = _project(cam_params, pc)
+    vis = ((z > 0.3) & (xy[:, 0] >= 1) & (xy[:, 0] < width - 1) &
+           (xy[:, 1] >= 1) & (xy[:, 1] < height - 1))
+    ids = np.nonzero(vis)[0]
+    rng.shuffle(ids)
+    ids = ids[:n_max]
+    n = len(ids)
+    D = desc.shape[1]
+    fxy = np.zeros((n_max, 2), np.float32)
+    fdesc = np.zeros((n_max, D), np.float32)
+    fdepth = np.full((n_max,), np.inf, np.float32)
+    valid = np.zeros((n_max,), bool)
+    fxy[:n] = xy[ids] + rng.randn(n, 2) * noise_px
+    d = desc[ids] + rng.randn(n, D) * desc_noise
+    fdesc[:n] = d / np.linalg.norm(d, axis=1, keepdims=True)
+    fdepth[:n] = z[ids]
+    valid[:n] = True
+    return fxy, fdesc, fdepth, valid

@@ -141,3 +141,47 @@ def test_wrappers_check_their_inputs(dev):
     with pytest.raises(ValueError, match="shape"):
         kernels.lba_landmark_blocks(row_lm, vals[..., :29].contiguous(), 4,
                                     kernels.lba_plan(row_lm, 4))
+
+
+def test_frame_graph_replay_equals_eager_fused_function(dev):
+    """Pipelined tracking on the card: a tracked frame replayed from its
+    captured CUDA graph gives the poses and bindings of the same function
+    run eagerly (same operations on the same inputs: poses within 1e-5),
+    the window-match counter ticks once per replay, and no asynchronous
+    read is lost."""
+    from dani_slam_tpu_torch.core import cameras
+    from dani_slam_tpu_torch.core import state as mstate
+    from dani_slam_tpu_torch.models import yolo
+    from dani_slam_tpu_torch.slam.system import Sensor, System
+    from dani_slam_tpu_torch.utils import synthetic
+    W, H, F, n = 320, 240, 300.0, 8
+    R_gt, t_gt = synthetic.orbit_trajectory(n, radius=10.0,
+                                            angle_span=0.35 * n / 60)
+    imgs, deps, times = synthetic.make_rgbd_image_sequence(
+        [F, F, W / 2, H / 2], W, H, R_gt, t_gt, seed=0)
+    out = {}
+    for graph in (True, False):
+        cam = cameras.Camera.pinhole(F, F, W / 2, H / 2, W, H, device=dev)
+        s = System(cam, Sensor.RGBD,
+                   caps=mstate.MapCaps(K=32, L=4096, N=256, D=256),
+                   n_features=256, detector=yolo.load_default_detector(dev),
+                   matcher="auto", pipelined=True, device=dev)
+        s.sp_threshold = 0.012
+        s.tracker.frame_graph = graph
+        kernels.reset_launch_counts()
+        for i in range(n):
+            s.track_rgbd(torch.as_tensor(imgs[i], device=dev),
+                         torch.as_tensor(deps[i].astype(np.int32),
+                                         device=dev), times[i])
+        s.shutdown()
+        out[graph] = (s.tracker.trajectory, s.tracker.last_bind,
+                      s.tracker.graph_replays, s.tracker.eager_frames,
+                      kernels.launch_counts()["window_match_topk2"])
+    (tg, bg, rg, eg, wg), (te, be, re_, ee, we) = out[True], out[False]
+    assert (rg, eg) == (n - 2, 2) and (re_, ee) == (0, n)
+    assert wg >= n - 1 and we == n - 1
+    assert len(tg) == len(te) == n
+    for a, b in zip(tg, te):
+        np.testing.assert_allclose(a[1], b[1], atol=1e-5)
+        np.testing.assert_allclose(a[2], b[2], atol=1e-5)
+    assert torch.equal(bg, be)

@@ -24,7 +24,7 @@ for m in mods:
     importlib.import_module(m)
 import torch
 from dani_slam_tpu_torch.core import cameras, state
-from dani_slam_tpu_torch.models import superpoint, yolo
+from dani_slam_tpu_torch.models import lightglue, superpoint, yolo
 from dani_slam_tpu_torch.slam.system import System
 cam = cameras.Camera.pinhole(300.0, 300.0, 160.0, 120.0, 320, 240,
                              device="cpu")
@@ -36,7 +36,11 @@ for name, fn in (("System", lambda: System(cam)),
                  ("superpoint.load_default_params",
                   lambda: superpoint.load_default_params()),
                  ("yolo.load_default_detector",
-                  lambda: yolo.load_default_detector())):
+                  lambda: yolo.load_default_detector()),
+                 ("lightglue.load_default_matcher",
+                  lambda: lightglue.load_default_matcher()),
+                 ("System(matcher='auto', pipelined=True)",
+                  lambda: System(cam, matcher="auto", pipelined=True))):
     try:
         fn()
         default_raises[name] = False
@@ -65,7 +69,10 @@ def _port_modules():
 
 def test_port_imports_without_jax_and_defaults_to_cuda():
     mods = _port_modules()
-    assert len(mods) >= 25           # every module of the slice
+    assert len(mods) >= 29           # every module of the port
+    for new in ("models.lightglue", "models.vocab", "slam.atlas",
+                "slam.framegraph"):
+        assert f"{PKG}.{new}" in mods
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     proc = subprocess.run([sys.executable, "-c", CHILD, ROOT,
