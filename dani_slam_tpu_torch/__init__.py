@@ -7,10 +7,12 @@ that each counterpart is easy to find. Plain tensor code is PyTorch; the two
 Pallas TPU kernels of the RGB-D tracking + local-mapping path are hand-written
 CUDA C++ kernels for sm_90a (csrc/), bound through ctypes (ops/kernels.py).
 
-It covers the RGB-D path in the bench's configuration: SuperPoint frontend,
-YOLO dynamic masking, LightGlue matcher, pipelined tracking (one captured
-CUDA graph per tracked frame, slam/framegraph.py), local mapping with local
-BA, and an Atlas of maps; loop closing and relocalization are not ported yet.
+It covers the RGB-D path in the configuration bench.py runs: SuperPoint
+frontend, YOLO dynamic masking, LightGlue matcher, pipelined tracking (one
+captured CUDA graph per tracked frame, slam/framegraph.py), local mapping
+with local BA, loop closing with time-sliced correction and global BA,
+relocalization, and an Atlas of maps that merges a new map back into a
+stored one; the inertial paths are not ported yet.
 
 Entry points run on the card by default and raise when CUDA is missing; the
 CPU is used only when a caller passes device="cpu" (the tests do), and there

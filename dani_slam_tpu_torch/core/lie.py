@@ -1,5 +1,6 @@
-"""Lie-group operations on SO(3)/SE(3) — the subset the RGB-D tracking and
-local-mapping path uses (counterpart of dani_slam_tpu/core/lie.py).
+"""Lie-group operations on SO(3)/SE(3)/Sim(3) — the subset the RGB-D
+tracking, local-mapping and loop-closing paths use (counterpart of
+dani_slam_tpu/core/lie.py).
 
 Conventions as in the reference package: rotations are 3x3 matrices, poses
 are (R, t) pairs, every function broadcasts over leading batch dims, tangent
@@ -24,6 +25,12 @@ def hat(phi: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def vee(Phi: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (...,3,3) -> (...,3)."""
+    return torch.stack([Phi[..., 2, 1], Phi[..., 0, 2], Phi[..., 1, 0]],
+                       dim=-1)
+
+
 def _sinc_terms(theta2: torch.Tensor):
     """(sin t/t, (1-cos t)/t^2, (t - sin t)/t^3) with Taylor fallbacks."""
     theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
@@ -46,6 +53,12 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     a, b, _ = _sinc_terms(theta2)
     K = hat(phi)
     return _eye_like(K) + a[..., None, None] * K + b[..., None, None] * (K @ K)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Matrix log: (...,3,3) -> (...,3) axis-angle, through the quaternion
+    (stable near theta = 0 and theta = pi)."""
+    return quat_to_axis_angle(mat_to_quat(R))
 
 
 def so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
@@ -94,6 +107,19 @@ def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def quat_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion wxyz -> axis-angle (...,3)."""
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    v = q[..., 1:]
+    vnorm = torch.linalg.norm(v, dim=-1)
+    theta = 2.0 * torch.atan2(vnorm, w)
+    # theta / sin(theta/2) with its Taylor fallback
+    scale = torch.where(vnorm < 1e-8, 2.0 / torch.clamp(w, min=1e-8),
+                        theta / torch.clamp(vnorm, min=1e-24))
+    return v * scale[..., None]
+
+
 def se3_exp(xi: torch.Tensor):
     """se(3) exp: (...,6) [rho, phi] -> (R, t)."""
     rho, phi = xi[..., :3], xi[..., 3:]
@@ -126,6 +152,80 @@ def orthonormalize(R: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Sim(3) as (R, t, s) triples: action p -> s R p + t
 # ---------------------------------------------------------------------------
+
+def _sim3_W(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The W matrix of the Sim(3) exp, t = W rho: A*Omega + B*Omega^2 + C*I
+    with the small-angle / small-scale Taylor branches of the reference
+    package (Strasdat/Sophus form, branch-free)."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    s = torch.exp(sigma)
+    Omega = hat(phi)
+    Omega2 = Omega @ Omega
+    eye = _eye_like(Omega)
+    one = torch.ones_like(sigma)
+
+    small_sig = torch.abs(sigma) < 1e-5
+    small_th = theta2 < _EPS
+    sig_safe = torch.where(small_sig, one, sigma)
+    th_safe = torch.where(small_th, one, theta)
+    th2_safe = torch.where(small_th, one, theta2)
+
+    # sigma ~ 0
+    A_ss = torch.where(small_th, 0.5 * one,
+                       (1.0 - torch.cos(th_safe)) / th2_safe)
+    B_ss = torch.where(small_th, one / 6.0,
+                       (th_safe - torch.sin(th_safe)) / (th2_safe * th_safe))
+    C_ss = one
+
+    # sigma != 0
+    C_gen = (s - 1.0) / sig_safe
+    sig2 = sig_safe * sig_safe
+    A_s0 = ((sig_safe - 1.0) * s + 1.0) / sig2               # theta ~ 0
+    B_s0 = (s * 0.5 * sig2 + s - 1.0 - sig_safe * s) / (sig2 * sig_safe)
+    a_ = s * torch.sin(th_safe)
+    b_ = s * torch.cos(th_safe)
+    c_ = th2_safe + sigma * sigma
+    A_g = (a_ * sigma + (1.0 - b_) * th_safe) / (th_safe * c_)
+    B_g = (C_gen - ((b_ - 1.0) * sigma + a_ * th_safe) / c_) / th2_safe
+    A_gen = torch.where(small_th, A_s0, A_g)
+    B_gen = torch.where(small_th, B_s0, B_g)
+
+    A = torch.where(small_sig, A_ss, A_gen)
+    B = torch.where(small_sig, B_ss, B_gen)
+    C = torch.where(small_sig, C_ss, C_gen)
+    return (A[..., None, None] * Omega + B[..., None, None] * Omega2
+            + C[..., None, None] * eye)
+
+
+def _solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A^-1 b for (...,3,3) A by the adjugate: elementwise, differentiable
+    in forward mode, and without the host read that torch.linalg.solve
+    makes to check for a singular matrix (the reference package calls a
+    general solve)."""
+    c0 = torch.linalg.cross(A[..., 1, :], A[..., 2, :])
+    c1 = torch.linalg.cross(A[..., 2, :], A[..., 0, :])
+    c2 = torch.linalg.cross(A[..., 0, :], A[..., 1, :])
+    det = torch.sum(A[..., 0, :] * c0, dim=-1)
+    adj_b = c0 * b[..., 0:1] + c1 * b[..., 1:2] + c2 * b[..., 2:3]
+    return adj_b / det[..., None]
+
+
+def sim3_exp(xi: torch.Tensor):
+    """sim(3) exp: (...,7) [rho, phi, sigma] -> (R, t, s)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    R = so3_exp(phi)
+    W = _sim3_W(phi, sigma)
+    return R, torch.einsum('...ij,...j->...i', W, rho), torch.exp(sigma)
+
+
+def sim3_log(R, t, s) -> torch.Tensor:
+    """(R, t, s) -> (...,7) [rho, phi, sigma]."""
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    rho = _solve3(_sim3_W(phi, sigma), t)
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
 
 def sim3_inv(R, t, s):
     Rt = R.transpose(-1, -2)

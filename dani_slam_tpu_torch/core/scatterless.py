@@ -61,11 +61,22 @@ def id_count(ids: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor:
 
 def id_sum(ids: torch.Tensor, ok: torch.Tensor, vals: torch.Tensor,
            size: int) -> torch.Tensor:
-    """[size]: out[s] = sum over j of vals[j] where ok[j] & ids[j]==s
-    (used with integer vals)."""
-    out = torch.zeros(size + 1, dtype=vals.dtype, device=ids.device)
-    out.index_add_(0, _dump_idx(ids, ok, size),
-                   torch.where(ok, vals, torch.zeros_like(vals)))
+    """[size, ...]: out[s] = sum over j of vals[j] (rows of [B, ...]) where
+    ok[j] & ids[j]==s. Integer vals: one scatter-add (exact in any order).
+    Float vals: the reference's dense form, a [size, B] one-hot matmul —
+    atomic float adds would make the sum depend on their order, and the
+    result must not change from run to run."""
+    okb = ok.reshape(ok.shape + (1,) * (vals.ndim - 1))
+    vals = torch.where(okb, vals, torch.zeros_like(vals))
+    if vals.dtype.is_floating_point:
+        iota = torch.arange(size, device=ids.device)
+        onehot = ((ids[None, :] == iota[:, None]) & ok[None, :]).to(
+            vals.dtype)
+        return (onehot @ vals.reshape(vals.shape[0], -1)).reshape(
+            (size,) + vals.shape[1:])
+    out = torch.zeros((size + 1,) + vals.shape[1:], dtype=vals.dtype,
+                      device=ids.device)
+    out.index_add_(0, _dump_idx(ids, ok, size), vals)
     return out[:size]
 
 

@@ -1,6 +1,7 @@
-"""Motion-only pose optimization: damped Gauss-Newton (LM) on SE(3)
-(counterpart of dani_slam_tpu/ops/solvers.py pose_optimize; the inertial
-solvers come with a later slice).
+"""Motion-only pose optimization: damped Gauss-Newton (LM) on SE(3), and
+Horn's closed-form alignment (counterpart of dani_slam_tpu/ops/solvers.py
+pose_optimize and horn_align; the inertial solvers come with a later
+slice).
 
 Semantics of the reference's Optimizer::PoseOptimization: 4 rounds x up to
 10 LM iterations, Huber delta sqrt(chi2) in the first two rounds, chi-square
@@ -142,3 +143,39 @@ def pose_optimize(R0, t0, cam, pts_w, obs_xy, mask, inv_sigma2=None,
         inl = mask & (c <= chi2_th)
     _, total = chi2_of(R, t, inl)
     return PoseOptResult(R, t, inl, torch.sum(inl.to(torch.int32)), total)
+
+
+# ---------------------------------------------------------------------------
+# Horn alignment (closed-form absolute orientation; reference Sim3Solver
+# ComputeSim3)
+# ---------------------------------------------------------------------------
+
+def horn_align(P: torch.Tensor, Q: torch.Tensor, w=None,
+               with_scale: bool = False):
+    """(R, t, s) minimizing sum w ||Q - (s R P + t)||^2 for P, Q [..., N, 3]
+    (batched): SVD of the weighted cross-covariance with the reflection
+    fix. The SVD's signs may differ from another library's; R, t and s do
+    not."""
+    if w is None:
+        w = torch.ones(P.shape[:-1], dtype=P.dtype, device=P.device)
+    wsum = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
+    wp = (w / wsum[..., 0:1])[..., None]
+    mu_p = torch.sum(P * wp, dim=-2)
+    mu_q = torch.sum(Q * wp, dim=-2)
+    Pc = P - mu_p[..., None, :]
+    Qc = Q - mu_q[..., None, :]
+    S = torch.einsum('...ni,...n,...nj->...ij', Qc, w, Pc)
+    U, D, Vt = torch.linalg.svd(S)
+    det = torch.linalg.det(U @ Vt)
+    ones = torch.ones_like(det)
+    E = torch.diag_embed(torch.stack([ones, ones, det], dim=-1))
+    R = U @ E @ Vt
+    if with_scale:
+        num = torch.sum(D * torch.stack([ones, ones, det], dim=-1), dim=-1)
+        den = torch.clamp(torch.einsum('...ni,...n,...ni->...', Pc, w, Pc),
+                          min=1e-12)
+        s = num / den
+    else:
+        s = torch.ones(P.shape[:-2], dtype=P.dtype, device=P.device)
+    t = mu_q - s[..., None] * torch.einsum('...ij,...j->...i', R, mu_p)
+    return R, t, s

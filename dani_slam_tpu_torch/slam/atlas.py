@@ -156,7 +156,9 @@ class Atlas:
         keyframe inside each stored map; without it or without a stored
         database the newest slot is the candidate); verify_fn(st_a, st_b,
         kf_a, kf_b, key) -> ((R, t, s), n, ok) is the cross-map geometric
-        verifier; `key` is handed through to it.
+        verifier (slots as host ints; slam/loopclosing.
+        verify_cross_map_candidate behind the System's gates); `key` is
+        handed through to it.
         """
         from dani_slam_tpu_torch.models import vocab as vocab_mod
 
@@ -177,11 +179,9 @@ class Atlas:
                 cand_kf = int(scores.argmax())
                 if float(scores[cand_kf]) <= 0.0:
                     continue
-            T12, n, ok = verify_fn(
-                active_st, stored_st,
-                torch.as_tensor(active_kf, device=dev),
-                torch.as_tensor(cand_kf, device=dev), key)
-            if not bool(ok):
+            T12, n, ok = verify_fn(active_st, stored_st, int(active_kf),
+                                   cand_kf, key)
+            if not bool(pull(ok) if isinstance(ok, torch.Tensor) else ok):
                 continue
             R, t, s = T12
             # the verifier returns the relative sim3 between the two

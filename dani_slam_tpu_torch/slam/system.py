@@ -1,13 +1,16 @@
 """System facade, RGB-D (counterpart of dani_slam_tpu/slam/system.py):
 construct, call track_rgbd per frame, save the trajectory, shutdown.
 
-The port covers the RGB-D configurations without loop closing,
-relocalization and IMU: plain or pipelined tracking, the LightGlue matcher
-(matcher="auto") or descriptor mutual-NN (matcher=None), dynamic-object
-masking, and an Atlas that stashes the map on an unrecoverable loss or a
-timestamp jump and starts a new one. Each frame runs the frontend and the
-tracker (one captured device program per tracked frame in pipelined mode on
-the card) and — on a keyframe — the mapping step inline. Everything runs on
+The port covers the RGB-D configurations without IMU: plain or pipelined
+tracking, the LightGlue matcher (matcher="auto") or descriptor mutual-NN
+(matcher=None), dynamic-object masking, loop closing with its time-sliced
+correction and global BA, relocalization of a lost frame, and an Atlas that
+stashes the map on an unrecoverable loss or a timestamp jump, starts a new
+one, and welds the new map back into a stored one when place recognition
+finds the overlap. Each frame runs the frontend and the tracker (one
+captured device program per tracked frame in pipelined mode on the card)
+and — on a keyframe — the mapping step inline; the loop closer and the
+merge run when the keyframe's slot is read back. Everything runs on
 `device` ("cuda" by default; asking for CUDA without it raises).
 """
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 from dani_slam_tpu_torch.core import cameras as _cam
 from dani_slam_tpu_torch.core import lie
 from dani_slam_tpu_torch.core import state as mstate
+from dani_slam_tpu_torch.models import vocab
+from dani_slam_tpu_torch.slam import loopclosing as lc
 from dani_slam_tpu_torch.slam import mapping, tracking
 from dani_slam_tpu_torch.slam.atlas import Atlas
 from dani_slam_tpu_torch.slam.frame import FrameFeatures
@@ -41,21 +46,20 @@ class System:
     a models.lightglue.MatcherState, None (descriptor mutual-NN) or "auto"
     (the shipped LightGlue when the descriptor dim is 256, else None);
     `pipelined` defers each frame's lost/keyframe decision by
-    tracker.pipeline_depth frames."""
+    tracker.pipeline_depth frames; `enable_loop_closing` and
+    `enable_relocalization` are on by default, as in the reference package
+    (either one keeps the BoW database; `seed` seeds the loop closer's and
+    the relocalization's random draws)."""
 
     def __init__(self, cam: _cam.Camera, sensor: Sensor = Sensor.RGBD,
                  caps: Optional[mstate.MapCaps] = None, sp_params=None,
-                 n_features: int = 1024, enable_loop_closing: bool = False,
-                 enable_relocalization: bool = False,
+                 n_features: int = 1024, seed: int = 0,
+                 enable_loop_closing: bool = True,
+                 enable_relocalization: bool = True,
                  pipelined: bool = False, detector=None, matcher="auto",
                  device="cuda"):
         if sensor != Sensor.RGBD:
             raise NotImplementedError("the port runs RGB-D so far")
-        if enable_loop_closing or enable_relocalization:
-            raise NotImplementedError(
-                "loop closing and relocalization (with map merging) are not "
-                "ported yet: pass enable_loop_closing=False, "
-                "enable_relocalization=False")
         self.device = resolve_device(device)
         # f32 SLAM geometry in full precision (the JAX package sets
         # jax_default_matmul_precision="highest"); bf16 stays only where
@@ -81,6 +85,7 @@ class System:
         self.ba_iters = 5
         self.ba_iters_pressure = 3
         self._kf_count = 0
+        self.merges = 0
         # keyframe (slot, n_tracked) pulls are deferred by kf_pull_depth
         # frames, as in the reference package: the keyframe decision reads
         # ref_kf_tracked, so the deferral is part of the tracking behavior
@@ -109,6 +114,17 @@ class System:
         self.atlas = Atlas(self.caps)
         self.lost_frames_before_new_map = 30
         self.min_kfs_to_stash = 5
+        # the loop closer owns the BoW database, which relocalization needs
+        # too: it exists for either feature, loop detection is gated apart
+        self.loop_closer = None
+        if enable_loop_closing or enable_relocalization:
+            self.loop_closer = lc.LoopCloser(cam, self.caps, seed=seed,
+                                             fix_scale=True)
+            self.loop_closer.detect_loops = enable_loop_closing
+        if enable_relocalization:
+            self.tracker.reloc_fn = self._relocalize
+        self._reloc_gen = torch.Generator(
+            device=self.device).manual_seed(seed + 1)
 
     # -- frame entry point ------------------------------------------------
 
@@ -166,16 +182,22 @@ class System:
         return state, R, t
 
     def _new_map_in_atlas(self):
-        """Unrecoverable loss: stash the current map if it is substantial
-        (>= min_kfs_to_stash keyframes) and start a fresh one."""
+        """Unrecoverable loss: stash the current map (with its BoW rows) if
+        it is substantial (>= min_kfs_to_stash keyframes) and start a fresh
+        one; the loop closer forgets everything of the old map."""
         self._resolve_kf_pull()   # stale pulls reference the OLD map
         tr = self.tracker
+        lcl = self.loop_closer
         if self.n_keyframes() >= self.min_kfs_to_stash:
-            self.atlas.stash(tr.st)
+            self.atlas.stash(tr.st, bow=lcl.bow if lcl is not None else None)
         frame_id = tr.frame_id
         tr.reset()
         tr.frame_id = frame_id
         self._last_ts = None
+        if lcl is not None:
+            lcl.drop_pending()
+            lcl.bow = torch.zeros_like(lcl.bow)
+            lcl.last_loop_kf = -10 ** 9
         self._kf_count = 0
 
     # -- mapping (keyframe-rate) -----------------------------------------
@@ -231,7 +253,11 @@ class System:
     def _resolve_kf_pull(self, force: bool = True):
         """Pull deferred keyframe ids once they are kf_pull_depth frames
         old (all of them when forced); only the newest keyframe updates the
-        tracker's reference bookkeeping."""
+        tracker's reference bookkeeping. Each pulled keyframe then runs the
+        keyframe-rate hooks that need its host slot: the loop closer (whose
+        weld may move the map under the tracker: the correction goes onto
+        the pose chain, the in-flight pipeline and a pending keyframe) and
+        the map merge."""
         tr = self.tracker
         while self._kf_pulls:
             k, n_tracked, kf_count, disp_fid = self._kf_pulls[0]
@@ -243,6 +269,120 @@ class System:
             if kf_count == self._kf_count:
                 tr.ref_kf = int(k_host)
                 tr.ref_kf_tracked = int(n_host)
+            lcl = self.loop_closer
+            if lcl is not None:
+                tr.st = lcl.on_keyframe(tr.st, int(k_host),
+                                        kf_count=kf_count, kf_dev=k,
+                                        chain_ref=tr.ref_kf_dev)
+                if lcl.chain_corr is not None:
+                    cR, ct = lcl.chain_corr
+                    self._apply_chain_corr(cR, ct)
+                    # a keyframe awaiting its mapping step goes in at the
+                    # post-weld pose, and the frame pose popped by an
+                    # in-flight keyframe decision receives it as well
+                    if tr.pending_kf is not None:
+                        pfeat, pbind, pR, pt = tr.pending_kf
+                        tr.pending_kf = (pfeat, pbind) + \
+                            tracking.apply_chain_correction(pR, pt, cR, ct)
+                    tr.pending_chain_corr = (cR, ct)
+                    lcl.chain_corr = None
+            if self.atlas.n_maps() > 0:
+                self._try_map_merge()
+
+    def _apply_chain_corr(self, cR, ct):
+        """A weld moved the map: right-compose its correction onto the
+        tracker's pose chain and the in-flight pipeline."""
+        tr = self.tracker
+        tr.R, tr.t = tracking.apply_chain_correction(tr.R, tr.t, cR, ct)
+        tr.R_last, tr.t_last = tracking.apply_chain_correction(
+            tr.R_last, tr.t_last, cR, ct)
+        self._correct_pending_chain(cR, ct)
+
+    def _try_map_merge(self):
+        """Weld the active map into a stored one when place recognition
+        finds the overlap (reference: the LoopClosing merge branch ->
+        MergeLocal): the Atlas verifies with verify_cross_map_candidate and
+        merges, then the weld fuses duplicate landmarks (search_and_fuse),
+        refines the weld window with a local BA (the landmark-block kernel)
+        and moves the BoW rows to the merged slots."""
+        tr = self.tracker
+        lcl = self.loop_closer
+        qbow = lcl.bow[tr.ref_kf] if lcl is not None else None
+
+        def verify(st_a, st_b, kf_a, kf_b, gen):
+            return lc.verify_cross_map_candidate(st_a, st_b, self.cam, kf_a,
+                                                 kf_b, gen, fix_scale=True)
+
+        out = self.atlas.try_merge(tr.st, self.cam, tr.ref_kf, qbow,
+                                   self._reloc_gen, verify)
+        if out is None:
+            return
+        new_ref, kf_map, lm_map = out["new_active_kf"], out["kf_map"], \
+            out["lm_map"]
+        if lcl is not None:
+            lcl.drop_pending()
+        self.merges += 1
+        tr.st = out["st"]
+        tr.ref_kf = new_ref
+        tr.ref_kf_fid = int(pull(tr.st.kf_frame_id[new_ref]))
+        tr.ref_kf_dev = torch.full((), new_ref, dtype=torch.int64,
+                                   device=self.device)
+        if tr.last_bind is not None:
+            lb = tr.last_bind
+            tr.last_bind = torch.where(
+                lb >= 0, lm_map[torch.clamp(lb, min=0).long()].to(lb.dtype),
+                torch.full_like(lb, -1))
+        tr.st = lc.search_and_fuse(tr.st, self.cam, new_ref, out["cand_kf"])
+        tr.st = mapping.local_bundle_adjustment(tr.st, self.cam,
+                                                tr.ref_kf_dev)
+        if lcl is not None:
+            # the stored map's rows stay at their slots, the moved rows go
+            # to theirs (written from the destination side)
+            K = self.caps.K
+            base = out.get("stored_bow")
+            if base is None:
+                base = torch.zeros_like(lcl.bow)
+            dst = torch.where(kf_map >= 0, kf_map.long(),
+                              torch.full_like(kf_map, K, dtype=torch.long))
+            src = torch.full((K + 1,), -1, dtype=torch.long,
+                             device=self.device)
+            src = src.scatter(0, dst, torch.arange(K, device=self.device))
+            src = src[:K]
+            lcl.bow = torch.where((src >= 0)[:, None],
+                                  lcl.bow[torch.clamp(src, min=0)], base)
+
+    def _relocalize(self, tracker, feat: FrameFeatures):
+        """Relocalization of a lost frame (reference:
+        Tracking::Relocalization): BoW candidates from the database, then
+        per candidate in rank order matching (LightGlue or mutual NN), PnP
+        RANSAC and the widening refinement; the first accepted candidate
+        wins. Returns (R, t, bind, keyframe slot) or None."""
+        lcl = self.loop_closer
+        if lcl is None or self.n_keyframes() < 2:
+            return None
+        self._resolve_kf_pull()   # score against the full database
+        cb = lcl.codebook
+        qbow = vocab.bow_vector(vocab.quantize(feat.desc, feat.valid, cb),
+                                cb.shape[0])
+        idx, _, keep = vocab.detect_reloc_candidates(
+            lcl.bow, tracker.st.kf_mask, qbow, covis=tracker.st.covis,
+            n_best=3)
+        idx_h, keep_h = pull(torch.stack([idx.long(), keep.long()]))
+        for rank in range(3):
+            if not keep_h[rank]:
+                continue
+            kf = int(idx_h[rank])
+            if self.matcher is not None:
+                R, t, bind, _, ok = lc.relocalize_against_kf_lightglue(
+                    tracker.st, self.cam, kf, feat.xy, feat.desc,
+                    feat.valid, self._reloc_gen, self.matcher)
+            else:
+                R, t, bind, _, ok = lc.relocalize_against_kf(
+                    tracker.st, self.cam, kf, feat.xy, feat.desc,
+                    feat.valid, self._reloc_gen)
+            if bool(pull(ok)):
+                return R, t, bind, kf
+        return None
 
     # -- misc public API --------------------------------------------------
 
@@ -257,11 +397,21 @@ class System:
         return int(pull(mstate.num_landmarks(self.tracker.st)))
 
     def shutdown(self):
+        """Resolve everything in flight; a pending time-sliced loop
+        correction or global BA is drained, so that the trajectory and the
+        map carry the final correction."""
         self._resolve_kf_pull()
         self.tracker.flush()
         if self.tracker.pending_kf is not None and self.enable_mapping:
             self._keyframe_step()
         self._resolve_kf_pull()
+        lcl = self.loop_closer
+        if lcl is not None:
+            tr = self.tracker
+            tr.st = lcl.finish_gba(tr.st, tr.ref_kf_dev)
+            if lcl.chain_corr is not None:
+                self._apply_chain_corr(*lcl.chain_corr)
+                lcl.chain_corr = None
 
     def activate_localization_mode(self):
         """Track against the existing map without extending it (mapping

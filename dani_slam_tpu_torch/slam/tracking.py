@@ -7,13 +7,15 @@ TrackReferenceKeyFrame (LightGlue when a matcher is given, descriptor
 mutual-NN otherwise), TrackLocalMap (covisible local map, target-side
 projected search through the window-match kernel), NeedNewKeyFrame /
 CreateNewKeyFrame, localization-mode visual odometry on the last frame's
-depth points.
+depth points, and the relocalization attempt of a lost frame (through the
+System's reloc_fn, on both the plain and the pipelined path).
 
 Pipelined mode defers each frame's lost/keyframe decision by pipeline_depth
 frames: the tracker state advances optimistically from device references,
 the frame's counts start an asynchronous copy to the host, and the decision
 is taken when that copy has long finished; a lost frame rolls the state back
-to its snapshot. On the image path a tracked frame is one function with no
+to its snapshot and hands the lost frame's features to relocalization. On
+the image path a tracked frame is one function with no
 host read inside (rgbd_frame_fused), run as a captured CUDA graph on the
 card (slam/framegraph.py).
 
@@ -381,11 +383,15 @@ class Tracker:
         # host hook invoked before each keyframe decision (the System wires
         # its deferred keyframe-pull resolver here)
         self.pre_kf_decision = None
+        # relocalization hook, reloc_fn(tracker, feat) -> (R, t, bind,
+        # keyframe slot) or None (System._relocalize); survives reset()
+        self.reloc_fn = None
         self.pipeline_depth = 4    # frames in flight before resolving
         self.frame_graph = self.device.type == "cuda"
         self.graph_replays = 0
         self.eager_frames = 0      # image-path frames run without a graph
         self.rollbacks = 0         # deferred decisions that found a loss
+        self.relocalizations = 0   # successful relocalizations
         self.reset()
 
     def reset(self):
@@ -567,7 +573,7 @@ class Tracker:
                     self._apply_track(feat, R_vo, t_vo,
                                       torch.full_like(bind, -1), self.st)
                     return
-            self._on_lost()
+            self._on_lost(feat)
             return
         self._apply_track(feat, R_new, t_new, bind, st)
         if self._need_new_kf(n, n_ct, n_cf):
@@ -629,7 +635,7 @@ class Tracker:
                         self._traj_dev.pop()
                 self._pending.clear()
                 self.rollbacks += 1
-                self._on_lost()
+                self._on_lost(feat)
             elif self._need_new_kf(n, n_ct, n_cf):
                 if self.pending_chain_corr is not None:
                     cR, ct = self.pending_chain_corr
@@ -639,14 +645,37 @@ class Tracker:
                                 n_tracked_hint=n)
             self.pending_chain_corr = None
 
-    def _on_lost(self):
-        """No relocalization and no IMU yet: count the loss and degrade
-        RECENTLY_LOST -> LOST after 20 frames."""
+    def _on_lost(self, feat: FrameFeatures | None = None):
+        """Count the loss (RECENTLY_LOST, then LOST after 20 frames) and try
+        to relocalize the lost frame `feat` (reference: the RECENTLY_LOST
+        branch runs Relocalization every frame). On success the tracker
+        restarts from the relocalized pose with no velocity, so the next
+        frame runs the eager path, and re-anchors on the keyframe that
+        relocalized it (one blocking read of its frame id)."""
         self.frames_lost += 1
         if self.state == OK:
             self.state = RECENTLY_LOST
         elif self.frames_lost > 20:
             self.state = LOST
+        if feat is None or self.reloc_fn is None:
+            return
+        out = self.reloc_fn(self, feat)
+        if out is None:
+            return
+        R, t, bind, reloc_kf = out
+        self.state = OK
+        self.frames_lost = 0
+        self.relocalizations += 1
+        self.R, self.t = R, t
+        self.R_last, self.t_last = R, t
+        self.vel = None
+        self.last_feat = feat
+        self.last_bind = bind
+        if reloc_kf is not None:
+            self.ref_kf = int(reloc_kf)
+            self.ref_kf_dev = torch.full((), self.ref_kf, dtype=torch.int64,
+                                         device=self.device)
+            self.ref_kf_fid = int(pull(self.st.kf_frame_id[self.ref_kf]))
 
     def _need_new_kf(self, n_tracked: int, n_close_tracked: int = 10 ** 9,
                      n_close_free: int = 0) -> bool:

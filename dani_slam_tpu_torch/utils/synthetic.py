@@ -1,9 +1,12 @@
-"""Synthetic RGB-D sequences (counterpart of dani_slam_tpu/utils/synthetic.py),
-in numpy so that a run on the card needs no JAX: an orbit trajectory,
-rasterized textured corner spots with depth, the moving warm textured board
-the shipped detector was trained on, and feature-level frames of a random
-landmark cloud with unique descriptors (make_world / render_features), which
-exercise the SLAM layers without the learned frontend.
+"""Synthetic RGB-D sequences and maps (counterpart of
+dani_slam_tpu/utils/synthetic.py), built with numpy and the port itself so
+that a run on the card needs no JAX: an orbit trajectory, rasterized
+textured corner spots with depth, the moving warm textured board the shipped
+detector was trained on, feature-level frames of a random landmark cloud
+with unique descriptors and their true ids (make_world / render_frame),
+which exercise the SLAM layers without the learned frontend, and the
+drifted loop map of the loop-closing tests and bench
+(make_drifted_loop_state).
 The arithmetic follows the reference package's float32 steps so that the
 same seed renders the same frames (up to float rounding at the last bit).
 """
@@ -200,18 +203,24 @@ def make_world(n_points: int = 2000, desc_dim: int = 64, seed: int = 0,
     return pts, d
 
 
-def render_features(world, cam_params, width: int, height: int, R_cw, t_cw,
-                    n_max: int = 512, noise_px: float = 0.3,
-                    desc_noise: float = 0.05, seed: int = 0):
-    """Observe the world from pose T_cw as pre-extracted RGB-D features:
-    numpy (xy [n_max,2], desc [n_max,D], depth [n_max] (inf = padding),
-    valid [n_max]) — up to n_max visible landmarks in shuffled order, pixel
-    and descriptor noise added, exact depth."""
-    pts, desc = world
+def render_frame(world, cam, R_cw, t_cw, n_max: int = 512,
+                 noise_px: float = 0.3, desc_noise: float = 0.05,
+                 seed: int = 0, with_depth: bool = False,
+                 depth_noise: float = 0.0, time: float = 0.0):
+    """Observe the world (points [M,3], unit descriptors [M,D]) from pose
+    T_cw through the port's camera `cam` as pre-extracted features: up to
+    n_max visible landmarks in shuffled order with pixel and descriptor
+    noise, depth when with_depth (inf elsewhere). Returns (FrameFeatures on
+    cam's device, true_ids [n_max] int32 world index per row, -1 for
+    padding); numpy RandomState(seed) draws every random number."""
+    import torch
+    from dani_slam_tpu_torch.slam.frame import FrameFeatures
+    pts, desc = (np.asarray(a) for a in world)
+    width, height = cam.width, cam.height
     rng = np.random.RandomState(seed)
     pc = _apply(R_cw, t_cw, pts)
     z = pc[:, 2]
-    xy = _project(cam_params, pc)
+    xy = _project(cam.params.cpu().numpy(), pc)
     vis = ((z > 0.3) & (xy[:, 0] >= 1) & (xy[:, 0] < width - 1) &
            (xy[:, 1] >= 1) & (xy[:, 1] < height - 1))
     ids = np.nonzero(vis)[0]
@@ -223,9 +232,100 @@ def render_features(world, cam_params, width: int, height: int, R_cw, t_cw,
     fdesc = np.zeros((n_max, D), np.float32)
     fdepth = np.full((n_max,), np.inf, np.float32)
     valid = np.zeros((n_max,), bool)
+    true_ids = np.full((n_max,), -1, np.int32)
     fxy[:n] = xy[ids] + rng.randn(n, 2) * noise_px
     d = desc[ids] + rng.randn(n, D) * desc_noise
     fdesc[:n] = d / np.linalg.norm(d, axis=1, keepdims=True)
-    fdepth[:n] = z[ids]
+    if with_depth:
+        fdepth[:n] = z[ids] * (1 + rng.randn(n) * depth_noise)
     valid[:n] = True
-    return fxy, fdesc, fdepth, valid
+    true_ids[:n] = ids
+    dev = cam.device
+    T = lambda a: torch.as_tensor(a, device=dev)     # noqa: E731
+    feat = FrameFeatures(xy=T(fxy), desc=T(fdesc), depth=T(fdepth),
+                         valid=T(valid),
+                         time=torch.full((), time, dtype=torch.float32,
+                                         device=dev))
+    return feat, T(true_ids)
+
+
+def make_drifted_loop_state(cam, caps, K: int = 12, drift: float = 0.35,
+                            scale_drift: float = 1.0, desc_dim=None,
+                            seed: int = 2):
+    """Deterministic drifted loop map (the reference package's builder of
+    the same name, for the loop-closing tests and the loop bench): K
+    keyframes on a full orbit whose estimated poses carry a drift ramping
+    up along the loop (optionally a monocular-style scale drift instead),
+    landmarks created from depth at the estimated poses, and a covisibility
+    chain between consecutive keyframes but not across the loop gap
+    (last -> first), which only a loop edge can close. Built on cam's
+    device with the port's map functions. Returns (MapState, kf_ids,
+    (R_gt, t_gt) numpy, world)."""
+    import torch
+    from dani_slam_tpu_torch.core import cameras as _cam
+    from dani_slam_tpu_torch.core import lie
+    from dani_slam_tpu_torch.core import state as mstate
+    dev = cam.device
+    world = make_world(2000, desc_dim=desc_dim or caps.D, seed=seed)
+    R_gt, t_gt = orbit_trajectory(K, radius=10.0, angle_span=2 * np.pi)
+    st = mstate.empty_map(caps, device=dev)
+    N = caps.N
+    T = lambda a: torch.as_tensor(a, device=dev)     # noqa: E731
+    kf_ids = []
+    world2lm = {}        # world point id -> landmark slot (chain memory)
+    C_prev_est = None
+    for k in range(K):
+        a = drift * k / (K - 1)
+        dR, dt = lie.se3_exp(T(np.asarray([a, 0.5 * a, 0.0, 0.0, 0.05 * a,
+                                           0.0], np.float32)))
+        s_k = 1.0 + (scale_drift - 1.0) * k / (K - 1)
+        if scale_drift != 1.0:
+            C_gt_k = -R_gt[k].T @ t_gt[k]
+            if C_prev_est is None:
+                C_est = C_gt_k
+            else:
+                C_est = C_prev_est + s_k * (C_gt_k - (-R_gt[k - 1].T @
+                                                      t_gt[k - 1]))
+            C_prev_est = C_est
+            R_est = T(R_gt[k])
+            t_est = T(np.asarray(-R_gt[k] @ C_est, np.float32))
+        else:
+            R_est = dR @ T(R_gt[k])
+            t_est = dR @ T(t_gt[k]) + dt
+        # descriptor noise scaled so that matching is as hard at any width
+        dnoise = 0.05 * (64.0 / world[1].shape[1]) ** 0.5
+        feat, tid = render_frame(world, cam, R_gt[k], t_gt[k], n_max=N,
+                                 noise_px=0.2, desc_noise=dnoise,
+                                 seed=100 + k, with_depth=True, time=k / 5.0)
+        if scale_drift != 1.0:
+            feat = feat._replace(depth=feat.depth * s_k)
+        # landmarks from depth at the ESTIMATED pose; world points the
+        # previous keyframe saw are rebound, which makes the covisibility
+        # chain (never across the loop gap)
+        Xc = _cam.unproject(cam, feat.xy) * feat.depth[:, None]
+        Xw = lie.se3_apply(*lie.se3_inv(R_est, t_est), Xc)
+        good = (feat.valid & torch.isfinite(feat.depth)).cpu().numpy()
+        tid_np = tid.cpu().numpy()
+        bind = np.full(N, -1, np.int32)
+        create = good.copy()
+        for row in range(N):
+            if good[row] and tid_np[row] in world2lm:
+                bind[row] = world2lm[tid_np[row]]
+                create[row] = False
+        kk = torch.full((N,), k, dtype=torch.int32, device=dev)
+        st, slots = mstate.insert_landmarks(
+            st, Xw, feat.desc, Xw, torch.zeros(N, device=dev) + 0.5,
+            torch.zeros(N, device=dev) + 50.0, kk, kk, T(create))
+        slots_np = slots.cpu().numpy()
+        for row in range(N):
+            if create[row] and slots_np[row] >= 0:
+                bind[row] = slots_np[row]
+                world2lm[tid_np[row]] = int(slots_np[row])
+        st, kf = mstate.insert_keyframe(
+            st, R_est, t_est, k / 5.0, k, feat.xy, feat.valid, feat.desc,
+            feat.depth, torch.zeros((N,), dtype=torch.int8, device=dev),
+            T(bind))
+        kf_ids.append(int(kf))
+        seen_now = set(tid_np[good].tolist())
+        world2lm = {w: l for w, l in world2lm.items() if w in seen_now}
+    return st, kf_ids, (R_gt, t_gt), world

@@ -91,6 +91,26 @@ def test_window_match_scalar_radius(dev):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("radius", [10.0, 3.0])
+def test_window_match_relocalization_shape(dev, radius):
+    """Relocalization's shape: one keyframe's 1024 landmarks against the
+    lost frame's 1024 keypoints, every row live, a scalar radius (the 10 px
+    and 3 px passes of slam/loopclosing._reloc_refine)."""
+    q, qxy, qv, t, txy, tv, _ = match_problem(1024, 1024, 256, 1024, 7, dev)
+    before = kernels.window_match_topk2.launches
+    out_k = kernels.window_match_topk2(q, qxy, qv, t, txy, tv, radius)
+    assert kernels.window_match_topk2.launches == before + 1
+    ref_dist = kernels.window_match_dist_ref(q, qxy, qv, t, txy, tv, radius)
+    out_r = kernels.window_match_reduce_ref(ref_dist)
+    torch.cuda.synchronize()
+    res = kernels.window_match_agreement(out_k, out_r, ref_dist, atol=1e-4)
+    assert res["ok"], res
+    assert bool((out_k[0] < 1e8).any())
+    again = kernels.window_match_topk2(q, qxy, qv, t, txy, tv, radius)
+    for a, b in zip(out_k, again):
+        assert torch.equal(a, b)
+
+
 def lba_problem(P, N, L, seed, dev, invalid=0.3):
     rng = np.random.default_rng(seed)
     row_lm = rng.integers(0, L, size=(P, N)).astype(np.int32)

@@ -1,7 +1,8 @@
 """The port stands alone: every module of dani_slam_tpu_torch (and
 chip_smoke.py) imports with `jax` and `dani_slam_tpu` blocked, and its entry
-points default to CUDA and raise on a host without it instead of running on
-the CPU.
+points (System with loop closing and relocalization on by default, the
+vocabulary, the LoopCloser) default to CUDA and raise on a host without it
+instead of running on the CPU.
 
 This runs in a subprocess because tests/conftest.py imports JAX into the
 test process itself.
@@ -24,7 +25,8 @@ for m in mods:
     importlib.import_module(m)
 import torch
 from dani_slam_tpu_torch.core import cameras, state
-from dani_slam_tpu_torch.models import lightglue, superpoint, yolo
+from dani_slam_tpu_torch.models import lightglue, superpoint, vocab, yolo
+from dani_slam_tpu_torch.slam import loopclosing
 from dani_slam_tpu_torch.slam.system import System
 cam = cameras.Camera.pinhole(300.0, 300.0, 160.0, 120.0, 320, 240,
                              device="cpu")
@@ -40,7 +42,13 @@ for name, fn in (("System", lambda: System(cam)),
                  ("lightglue.load_default_matcher",
                   lambda: lightglue.load_default_matcher()),
                  ("System(matcher='auto', pipelined=True)",
-                  lambda: System(cam, matcher="auto", pipelined=True))):
+                  lambda: System(cam, matcher="auto", pipelined=True)),
+                 ("vocab.load_default_codebook",
+                  lambda: vocab.load_default_codebook()),
+                 ("LoopCloser",
+                  lambda: loopclosing.LoopCloser(
+                      cameras.Camera.pinhole(1, 1, 1, 1, 2, 2),
+                      state.MapCaps()))):
     try:
         fn()
         default_raises[name] = False
@@ -50,7 +58,11 @@ loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                        "dani_slam_tpu")
                 and sys.modules[k] is not None)
-print(json.dumps({"n": len(mods), "loaded": loaded,
+import inspect
+sig = inspect.signature(System).parameters
+defaults_on = (sig["enable_loop_closing"].default is True and
+               sig["enable_relocalization"].default is True)
+print(json.dumps({"n": len(mods), "loaded": loaded, "defaults_on": defaults_on,
                   "cuda": torch.cuda.is_available(),
                   "default_raises": default_raises}))
 """
@@ -69,9 +81,11 @@ def _port_modules():
 
 def test_port_imports_without_jax_and_defaults_to_cuda():
     mods = _port_modules()
-    assert len(mods) >= 29           # every module of the port
+    assert len(mods) >= 35           # every module of the port
     for new in ("models.lightglue", "models.vocab", "slam.atlas",
-                "slam.framegraph"):
+                "slam.framegraph", "slam.loopclosing", "ops.pnp",
+                "ops.sim3", "ops.posegraph", "ops.ba_large",
+                "utils.checkpoint"):
         assert f"{PKG}.{new}" in mods
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -82,5 +96,6 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["n"] == len(mods)
     assert out["loaded"] == []
+    assert out["defaults_on"]
     if not out["cuda"]:        # with a card the default device is usable
         assert all(out["default_raises"].values()), out["default_raises"]
