@@ -180,11 +180,12 @@ def ba_solve(R0, t0, pose_fixed, lm0, lm_valid, cam, obs_kf, obs_lm, obs_xy,
         return (R_new, t_new, lm_new, lam, R, t, lm, r, Jpose, Jpt, c_base,
                 torch.ones((), dtype=torch.bool, device=dev)), done
 
-    carry = (R0, t0, lm0, torch.tensor(1e-4, device=dev), R0, t0, lm0,
+    # fills, not torch.tensor(...): a copy from host memory would wait
+    carry = (R0, t0, lm0, torch.full((), 1e-4, device=dev), R0, t0, lm0,
              torch.zeros((M, 2), device=dev), torch.zeros((M, 2, 6),
                                                           device=dev),
              torch.zeros((M, 2, 3), device=dev),
-             torch.tensor(float("inf"), device=dev),
+             torch.full((), float("inf"), device=dev),
              torch.zeros((), dtype=torch.bool, device=dev))
     active = torch.ones((), dtype=torch.bool, device=dev)
     for _ in range(iters):

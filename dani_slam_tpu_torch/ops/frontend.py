@@ -1,5 +1,6 @@
 """Keypoint selection front-end (counterpart of dani_slam_tpu/ops/frontend.py):
-NMS, spatially-balanced top-k, dynamic-box suppression, descriptor sampling.
+NMS, spatially-balanced top-k, dynamic-box suppression, descriptor sampling,
+the multi-level pyramid extraction.
 
 Fixed shapes throughout: the output is always (n_max, ...) with a validity
 mask. Every "top-k" is a STABLE descending sort: the reference's
@@ -11,6 +12,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from dani_slam_tpu_torch.models import superpoint
+from dani_slam_tpu_torch.ops import image as image_ops
 
 
 def nms_heatmap(heat: torch.Tensor, radius: int = 4) -> torch.Tensor:
@@ -101,3 +105,26 @@ def extract(heat: torch.Tensor, desc_map: torch.Tensor, n_max: int = 1024,
         valid = suppress_in_boxes(xy, valid, boxes, box_mask)
     desc = sample_descriptors(desc_map, xy)
     return dict(xy=xy, score=score, desc=desc, valid=valid)
+
+
+def extract_multiscale(sp_model, gray: torch.Tensor, n_max: int = 1024,
+                       n_levels: int = 3, scale_factor: float = 1.2,
+                       threshold=0.007):
+    """Multi-level pyramid extraction: SuperPoint once per level, per-level
+    budgets n_max * s^-l / sum_k s^-k (rounded, at least 1, the remainder
+    on level 0), keypoints rescaled to level-0 pixels. Returns dict(xy,
+    score, desc, valid, octave int8) of n_max rows, level 0 first."""
+    levels = image_ops.gaussian_pyramid(gray, n_levels, scale_factor)
+    inv = [scale_factor ** -lv for lv in range(n_levels)]
+    denom = sum(inv)
+    budgets = [max(int(round(n_max * w / denom)), 1) for w in inv]
+    budgets[0] += n_max - sum(budgets)
+    outs = []
+    for lvl, (img, budget) in enumerate(zip(levels, budgets)):
+        heat, dm = superpoint.apply(sp_model, img)
+        out = extract(heat, dm, n_max=budget, threshold=threshold)
+        out["xy"] = out["xy"] * scale_factor ** lvl
+        out["octave"] = torch.full((budget,), lvl, dtype=torch.int8,
+                                   device=gray.device)
+        outs.append(out)
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}

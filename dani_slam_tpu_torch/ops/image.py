@@ -1,6 +1,7 @@
 """Image preprocessing (counterpart of dani_slam_tpu/ops/image.py): gray
-conversion, antialiased bilinear resize, TUM depth decoding. Images keep the
-JAX package's HWC layout at these public functions."""
+conversion, antialiased bilinear resize, the scale pyramid, the remap of
+stereo rectification, TUM depth decoding. Images keep the JAX package's HWC
+layout at these public functions."""
 from __future__ import annotations
 
 import torch
@@ -34,6 +35,45 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     y = F.interpolate(chw, size=(out_h, out_w), mode="bilinear",
                       align_corners=False, antialias=True)[0]
     return y[0] if img.ndim == 2 else y.permute(1, 2, 0)
+
+
+def gaussian_pyramid(img: torch.Tensor, n_levels: int, scale: float = 1.2):
+    """Image pyramid as a list: level l is img resized to
+    (round(H / scale^l), round(W / scale^l)) by resize_bilinear."""
+    H, W = img.shape[:2]
+    levels = [img]
+    for lv in range(1, n_levels):
+        s = scale ** lv
+        levels.append(resize_bilinear(img, int(round(H / s)),
+                                      int(round(W / s))))
+    return levels
+
+
+def remap_bilinear(img: torch.Tensor, map_x: torch.Tensor,
+                   map_y: torch.Tensor) -> torch.Tensor:
+    """cv::remap: sample img (H,W) or (H,W,C) bilinearly at float
+    coordinates (map_x, map_y) [h,w]; 0 where a coordinate lies outside
+    [0, W-1] x [0, H-1]. The result is float32."""
+    H, W = img.shape[:2]
+    x = img.to(torch.float32)
+    x0 = torch.floor(map_x)
+    y0 = torch.floor(map_y)
+    fx = map_x - x0
+    fy = map_y - y0
+    x0i = torch.clamp(x0.long(), 0, W - 1)
+    x1i = torch.clamp(x0i + 1, 0, W - 1)
+    y0i = torch.clamp(y0.long(), 0, H - 1)
+    y1i = torch.clamp(y0i + 1, 0, H - 1)
+    v00, v01 = x[y0i, x0i], x[y0i, x1i]
+    v10, v11 = x[y1i, x0i], x[y1i, x1i]
+    inside = (map_x >= 0) & (map_x <= W - 1) & (map_y >= 0) & \
+        (map_y <= H - 1)
+    if img.ndim == 3:
+        fx, fy, inside = fx[..., None], fy[..., None], inside[..., None]
+    top = v00 * (1 - fx) + v01 * fx
+    bot = v10 * (1 - fx) + v11 * fx
+    out = top * (1 - fy) + bot * fy
+    return torch.where(inside, out, torch.zeros_like(out))
 
 
 def depth_from_encoded(depth_raw: torch.Tensor,

@@ -1,5 +1,6 @@
 """Small dense SPD solves (counterpart of dani_slam_tpu/ops/linalg.py; the
-port's solvers need only chol_solve) and forward-mode Jacobians.
+port's solvers need only chol_solve), forward-mode Jacobians, and the SVDs
+that wait for the card, counted.
 
 The JAX package unrolls a Cholesky factorisation at trace time because the
 LAPACK custom call is latency-bound on a TPU. PyTorch has batched Cholesky
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import torch
 import torch.autograd.forward_ad as fwAD
+
+from dani_slam_tpu_torch.utils.device import SYNCS
 
 
 def chol_factor(A: torch.Tensor) -> torch.Tensor:
@@ -43,3 +46,24 @@ def jacfwd(f, x: torch.Tensor):
                                basis.contiguous()))
         val, tan = fwAD.unpack_dual(out)
     return val[0], tan.movedim(0, -1)
+
+
+def svd(A: torch.Tensor, full_matrices: bool = True):
+    """torch.linalg.svd, which makes the host wait on the card: for the
+    small systems of the solves (two-view 8x9 and 3x3 batches and single
+    3x3 matrices, the triangulation's 4x4 batches, the PnP and Sim3
+    hypotheses) PyTorch reads cuSOLVER's status back before returning, and
+    torch's sync debug mode flags it (twice a call, the second read finding
+    the queue empty). Counted in utils/device.SYNCS as one blocking read."""
+    if A.is_cuda:
+        SYNCS.count += 1
+        SYNCS.svd += 1
+    return torch.linalg.svd(A, full_matrices=full_matrices)
+
+
+def svdvals(A: torch.Tensor) -> torch.Tensor:
+    """torch.linalg.svdvals, counted as svd is."""
+    if A.is_cuda:
+        SYNCS.count += 1
+        SYNCS.svd += 1
+    return torch.linalg.svdvals(A)

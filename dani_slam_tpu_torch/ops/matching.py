@@ -90,8 +90,11 @@ def resolve_duplicate_targets(m: Matches, n_targets: int) -> Matches:
 def _window_mask(proj_xy, proj_valid, kp_xy, kp_valid, radius):
     dx = proj_xy[..., :, None, 0] - kp_xy[..., None, :, 0]
     dy = proj_xy[..., :, None, 1] - kp_xy[..., None, :, 1]
-    r = torch.as_tensor(radius, dtype=torch.float32, device=proj_xy.device)
-    r2 = r * r if r.ndim == 0 else (r * r)[..., :, None]
+    # a Python radius stays a Python number: a tensor made of it would be a
+    # host-to-device copy that waits (torch's sync debug mode flags it)
+    r2 = radius * radius if not isinstance(radius, torch.Tensor) else \
+        (radius * radius if radius.ndim == 0 else
+         (radius * radius)[..., :, None])
     return ((dx * dx + dy * dy) <= r2) & proj_valid[..., :, None] & \
         kp_valid[..., None, :]
 
@@ -123,6 +126,17 @@ def search_by_projection_bind(proj_xy, proj_valid, query_desc, kp_xy,
     ok = (cbest < th_desc * th_desc) & \
         (j[ci.long()] == torch.arange(kp_xy.shape[0], device=j.device))
     return ci.long(), cd, ok
+
+
+def search_for_initialization(kp0_xy, kp0_valid, desc0, kp1_xy, kp1_valid,
+                              desc1, window: float = 100.0,
+                              ratio: float = 0.9,
+                              th_desc: float = TH_LOW * 2) -> Matches:
+    """Monocular-init matching: windowed (100 px) mutual nearest neighbour
+    with a ratio test (reference: SearchForInitialization)."""
+    return search_by_projection(kp0_xy, kp0_valid, desc0, kp1_xy, kp1_valid,
+                                desc1, radius=window, th_desc=th_desc,
+                                ratio=ratio, mutual=True)
 
 
 def project_landmarks(R_cw, t_cw, cam, lm_pos, lm_mask, lm_normal=None,

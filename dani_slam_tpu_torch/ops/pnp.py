@@ -23,7 +23,7 @@ import torch
 
 from dani_slam_tpu_torch.core import cameras as _cam
 from dani_slam_tpu_torch.core import scatterless as sless
-from dani_slam_tpu_torch.ops import solvers
+from dani_slam_tpu_torch.ops import linalg, solvers
 
 
 class PnPResult(NamedTuple):
@@ -60,10 +60,10 @@ def _dlt_p6(X: torch.Tensor, rays: torch.Tensor):
     r1 = torch.cat([Xh, zero, -x[..., None] * Xh], dim=-1)
     r2 = torch.cat([zero, Xh, -y[..., None] * Xh], dim=-1)
     A = torch.cat([r1, r2], dim=-2)                             # B,12,12
-    _, _, Vt = torch.linalg.svd(A)
+    _, _, Vt = linalg.svd(A)
     P = Vt[..., 11, :].reshape(A.shape[:-2] + (3, 4))
     M = P[..., :3]
-    U, S, Vt2 = torch.linalg.svd(M)
+    U, S, Vt2 = linalg.svd(M)
     det = torch.linalg.det(U @ Vt2)
     scale = torch.mean(S, dim=-1) * det
     ones = torch.ones_like(det)

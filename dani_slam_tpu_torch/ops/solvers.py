@@ -165,7 +165,7 @@ def horn_align(P: torch.Tensor, Q: torch.Tensor, w=None,
     Pc = P - mu_p[..., None, :]
     Qc = Q - mu_q[..., None, :]
     S = torch.einsum('...ni,...n,...nj->...ij', Qc, w, Pc)
-    U, D, Vt = torch.linalg.svd(S)
+    U, D, Vt = dla.svd(S)
     det = torch.linalg.det(U @ Vt)
     ones = torch.ones_like(det)
     E = torch.diag_embed(torch.stack([ones, ones, det], dim=-1))

@@ -378,12 +378,15 @@ def local_bundle_adjustment(st: mstate.MapState, cam, center_kf,
 
 def cull_redundant_keyframes(st: mstate.MapState, center_kf,
                              n_check: int = 10, redundancy: float = 0.9,
-                             max_kills: int = 2):
+                             max_kills: int = 2, close_only: bool = False,
+                             close_depth: float = 3.0):
     """Remove up to max_kills covisible neighbors of center_kf whose
     landmarks are >= `redundancy` observed by >= 3 other keyframes, scored
     sequentially (earlier kills' observations discounted) and applied in
-    one update (reference: LocalMapping::KeyFrameCulling; the inertial
-    temporal guards and close-point counting come with later slices)."""
+    one update (reference: LocalMapping::KeyFrameCulling). close_only counts
+    only close points (measured depth in (0, close_depth)) toward the
+    fraction, the stereo / RGB-D policy; the inertial temporal guards come
+    with a later slice."""
     K, L = st.caps.K, st.caps.L
     dev = st.kf_R.device
     neigh, w = mstate.best_covisible(st, center_kf, n_check)
@@ -393,7 +396,12 @@ def cull_redundant_keyframes(st: mstate.MapState, center_kf,
     origin = torch.argmax(st.kf_mask.to(torch.int8))
     arangeK = torch.arange(K, device=dev)
 
-    row_valid = obs_valid[neigh]                                # [nc,N]
+    count_valid = obs_valid
+    if close_only:
+        d = st.kf_depth
+        count_valid = obs_valid & torch.isfinite(d) & (d > 0) & \
+            (d < close_depth)
+    row_valid = count_valid[neigh]                              # [nc,N]
     lm = obs_safe[neigh]
     n_total = torch.sum(row_valid.to(torch.int32), dim=1)
     protected = (neigh == center_kf) | (neigh == origin) | (n_total < 30)
@@ -459,12 +467,16 @@ def cull_bad_landmarks(st: mstate.MapState, current_kf_counter,
 
 def keyframe_step(st: mstate.MapState, cam, feat_xy, feat_valid, feat_desc,
                   feat_depth, bind, R, t, time, frame_id,
-                  do_ba: bool = True, do_aux: bool = True,
-                  max_depth: float = 40.0, n_neighbors: int = 5,
-                  feat_octave=None, chain=None, ba_iters: int = 5,
-                  cull_redundancy: float = 0.9, cull_max_kills: int = 2,
-                  fuse_two_hop: int = 0, matcher=None):
-    """Insert a keyframe and run the mapping pipeline (RGB-D). Returns
+                  use_depth: bool = False, do_ba: bool = True,
+                  do_aux: bool = True, max_depth: float = 40.0,
+                  n_neighbors: int = 5, feat_octave=None, chain=None,
+                  ba_iters: int = 5, cull_redundancy: float = 0.9,
+                  cull_max_kills: int = 2, cull_close_only: bool = False,
+                  cull_close_depth: float = 3.0, fuse_two_hop: int = 0,
+                  matcher=None):
+    """Insert a keyframe and run the mapping pipeline: landmarks from depth
+    (use_depth: stereo and RGB-D), triangulated landmarks, fuse, local BA,
+    culling. Returns
     (st, kf_slot, n_tracked, chain') where chain' re-anchors the tracker's
     pose chain (R_cur, t_cur, R_last, t_last) onto the BA-refined keyframe
     pose: (R_cur', t_cur', R_last', t_last', corr_R, corr_t)."""
@@ -474,7 +486,8 @@ def keyframe_step(st: mstate.MapState, cam, feat_xy, feat_valid, feat_desc,
     st, k = mstate.insert_keyframe(st, R, t, time, frame_id, feat_xy,
                                    feat_valid, feat_desc, feat_depth, octave,
                                    bind)
-    st = create_depth_landmarks(st, cam, k, max_depth=max_depth)
+    if use_depth:
+        st = create_depth_landmarks(st, cam, k, max_depth=max_depth)
     st = create_new_landmarks(st, cam, k, n_neighbors=n_neighbors,
                               matcher=matcher)
     if do_aux:
@@ -485,7 +498,9 @@ def keyframe_step(st: mstate.MapState, cam, feat_xy, feat_valid, feat_desc,
     if do_aux:
         st = cull_bad_landmarks(st, st.next_kf_counter)
         st = cull_redundant_keyframes(st, k, redundancy=cull_redundancy,
-                                      max_kills=cull_max_kills)
+                                      max_kills=cull_max_kills,
+                                      close_only=cull_close_only,
+                                      close_depth=cull_close_depth)
     chain_out = None
     if chain is not None:
         R_cur, t_cur, R_last, t_last = chain

@@ -1,17 +1,22 @@
-"""System facade, RGB-D (counterpart of dani_slam_tpu/slam/system.py):
-construct, call track_rgbd per frame, save the trajectory, shutdown.
+"""System facade (counterpart of dani_slam_tpu/slam/system.py): construct,
+call track_monocular / track_stereo / track_rgbd per frame, save the
+trajectory, shutdown.
 
-The port covers the RGB-D configurations without IMU: plain or pipelined
-tracking, the LightGlue matcher (matcher="auto") or descriptor mutual-NN
-(matcher=None), dynamic-object masking, loop closing with its time-sliced
-correction and global BA, relocalization of a lost frame, and an Atlas that
-stashes the map on an unrecoverable loss or a timestamp jump, starts a new
-one, and welds the new map back into a stored one when place recognition
-finds the overlap. Each frame runs the frontend and the tracker (one
-captured device program per tracked frame in pipelined mode on the card)
-and — on a keyframe — the mapping step inline; the loop closer and the
-merge run when the keyframe's slot is read back. Everything runs on
-`device` ("cuda" by default; asking for CUDA without it raises).
+The port covers the three visual sensors without IMU: monocular (two-view
+initialization, the multi-level pyramid, Sim3 loop correction with scale),
+rectified stereo (depth from stereo matching, LightGlue when the matcher is
+loaded) and RGB-D; plain or pipelined tracking, the LightGlue matcher
+(matcher="auto") or descriptor mutual-NN (matcher=None), dynamic-object
+masking on the RGB-D path, loop closing with its time-sliced correction and
+global BA, relocalization of a lost frame, and an Atlas that stashes the
+map on an unrecoverable loss or a timestamp jump, starts a new one, and
+welds the new map back into a stored one when place recognition finds the
+overlap. Each frame runs the frontend and the tracker (on the RGB-D path in
+pipelined mode one captured device program per tracked frame on the card;
+monocular and stereo frames run eagerly) and, on a keyframe, the mapping
+step inline; the loop closer and the merge run when the keyframe's slot is
+read back. Everything runs on `device` ("cuda" by default; asking for CUDA
+without it raises).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from dani_slam_tpu_torch.models import vocab
 from dani_slam_tpu_torch.slam import loopclosing as lc
 from dani_slam_tpu_torch.slam import mapping, tracking
 from dani_slam_tpu_torch.slam.atlas import Atlas
+from dani_slam_tpu_torch.slam import frame as frame_mod
 from dani_slam_tpu_torch.slam.frame import FrameFeatures
 from dani_slam_tpu_torch.utils.device import pull, resolve_device
 
@@ -49,7 +55,11 @@ class System:
     tracker.pipeline_depth frames; `enable_loop_closing` and
     `enable_relocalization` are on by default, as in the reference package
     (either one keeps the BoW database; `seed` seeds the loop closer's and
-    the relocalization's random draws)."""
+    the relocalization's random draws, and the monocular initialization's);
+    `n_levels` and `scale_factor` set the monocular pyramid (the
+    reference's mono configurations run 8 levels, RGB-D and stereo 1);
+    `close_depth` (metres), when given, makes keyframe culling count only
+    close points, the reference's stereo / RGB-D policy."""
 
     def __init__(self, cam: _cam.Camera, sensor: Sensor = Sensor.RGBD,
                  caps: Optional[mstate.MapCaps] = None, sp_params=None,
@@ -57,9 +67,13 @@ class System:
                  enable_loop_closing: bool = True,
                  enable_relocalization: bool = True,
                  pipelined: bool = False, detector=None, matcher="auto",
-                 device="cuda"):
-        if sensor != Sensor.RGBD:
-            raise NotImplementedError("the port runs RGB-D so far")
+                 n_levels: int = 1, scale_factor: float = 1.2,
+                 close_depth: Optional[float] = None, device="cuda"):
+        mode = {Sensor.MONOCULAR: "mono", Sensor.STEREO: "stereo",
+                Sensor.RGBD: "rgbd"}.get(sensor)
+        if mode is None:
+            raise NotImplementedError(f"{sensor}: the port has no inertial "
+                                      "path yet")
         self.device = resolve_device(device)
         # f32 SLAM geometry in full precision (the JAX package sets
         # jax_default_matmul_precision="highest"); bf16 stays only where
@@ -72,10 +86,16 @@ class System:
         self.cam = cam
         self.sensor = sensor
         self.caps = caps or mstate.MapCaps()
-        self.tracker = tracking.Tracker(cam, self.caps, sensor="rgbd",
-                                        pipelined=pipelined)
+        self.tracker = tracking.Tracker(cam, self.caps, sensor=mode,
+                                        seed=seed, pipelined=pipelined)
         self.sp_params = sp_params
         self.n_features = n_features
+        self.n_levels = n_levels
+        self.scale_factor = scale_factor
+        self.close_depth = close_depth
+        # the monocular map's scale is its own: loops and merges are
+        # corrected by a Sim3 with scale there, by a rigid motion otherwise
+        self.fix_scale = mode != "mono"
         # cleared by activate_localization_mode: keyframes are then dropped
         self.enable_mapping = True
         self.aux_every = 2
@@ -119,14 +139,38 @@ class System:
         self.loop_closer = None
         if enable_loop_closing or enable_relocalization:
             self.loop_closer = lc.LoopCloser(cam, self.caps, seed=seed,
-                                             fix_scale=True)
+                                             fix_scale=self.fix_scale)
             self.loop_closer.detect_loops = enable_loop_closing
         if enable_relocalization:
             self.tracker.reloc_fn = self._relocalize
         self._reloc_gen = torch.Generator(
             device=self.device).manual_seed(seed + 1)
 
-    # -- frame entry point ------------------------------------------------
+    # -- frame entry points -----------------------------------------------
+
+    def track_monocular(self, img, timestamp: float):
+        """Monocular image in (H,W,3) or (H,W) uint8, T_cw out: frontend
+        (the n_levels pyramid) -> tracker -> mapping on a keyframe. Returns
+        (state, R, t)."""
+        img = torch.as_tensor(img, device=self.device)
+        feat = frame_mod.build_frame_mono(
+            self._sp(), img, self.cam, timestamp, n_max=self.n_features,
+            threshold=self.sp_threshold, n_levels=self.n_levels,
+            scale_factor=self.scale_factor)
+        return self.track_features(feat, timestamp=timestamp)
+
+    def track_stereo(self, img_left, img_right, timestamp: float,
+                     baseline: float):
+        """Rectified stereo pair in, T_cw out: SuperPoint on both images as
+        one batch, stereo depth (LightGlue when the matcher is loaded,
+        descriptor mutual-NN otherwise) -> tracker -> mapping on a keyframe.
+        Unrectified input is remapped first with ops/rectify. Returns
+        (state, R, t)."""
+        feat = frame_mod.build_frame_stereo(
+            self._sp(), torch.as_tensor(img_left, device=self.device),
+            torch.as_tensor(img_right, device=self.device), self.cam,
+            baseline, timestamp, n_max=self.n_features, matcher=self.matcher)
+        return self.track_features(feat, timestamp=timestamp)
 
     def track_rgbd(self, img, depth, timestamp: float,
                    depth_factor: float = 5000.0):
@@ -149,7 +193,7 @@ class System:
 
     def track_features(self, feat: FrameFeatures, dyn_ratio=None,
                        timestamp: Optional[float] = None):
-        """Pre-extracted RGB-D features in (custom frontends, tests).
+        """Pre-extracted features in (custom frontends, tests).
         dyn_ratio: device scalar in [0,1], the fraction of the image covered
         by dynamic objects (keyframe veto above 0.8). timestamp: host-side
         frame time for the timestamp-jump guard; no device pull is ever made
@@ -220,12 +264,16 @@ class System:
         self._last_kf_fid = fid
         st, k, n_tracked, chain = mapping.keyframe_step(
             tr.st, self.cam, feat.xy, feat.valid, feat.desc, feat.depth,
-            bind, R_kf, t_kf, feat.time, fid, do_ba=do_ba, do_aux=do_aux,
-            max_depth=40.0, feat_octave=feat.octave_or_zeros(),
-            matcher=self.matcher,
+            bind, R_kf, t_kf, feat.time, fid, use_depth=tr.use_depth,
+            do_ba=do_ba, do_aux=do_aux, max_depth=40.0,
+            feat_octave=feat.octave_or_zeros(), matcher=self.matcher,
             chain=(tr.R, tr.t, tr.R_last, tr.t_last), ba_iters=ba_iters,
             cull_redundancy=self.cull_redundancy,
-            cull_max_kills=self.cull_max_kills, fuse_two_hop=two_hop)
+            cull_max_kills=self.cull_max_kills,
+            cull_close_only=self.close_depth is not None,
+            cull_close_depth=(self.close_depth
+                              if self.close_depth is not None else 3.0),
+            fuse_two_hop=two_hop)
         tr.st = st
         tr.ref_kf_dev = k
         tr.R, tr.t, tr.R_last, tr.t_last, cR, ct = chain
@@ -311,7 +359,8 @@ class System:
 
         def verify(st_a, st_b, kf_a, kf_b, gen):
             return lc.verify_cross_map_candidate(st_a, st_b, self.cam, kf_a,
-                                                 kf_b, gen, fix_scale=True)
+                                                 kf_b, gen,
+                                                 fix_scale=self.fix_scale)
 
         out = self.atlas.try_merge(tr.st, self.cam, tr.ref_kf, qbow,
                                    self._reloc_gen, verify)

@@ -1,8 +1,11 @@
-"""Tracking: per-frame state machine and device steps, RGB-D (counterpart of
-dani_slam_tpu/slam/tracking.py for the RGB-D path, plain and pipelined).
+"""Tracking: per-frame state machine and device steps (counterpart of
+dani_slam_tpu/slam/tracking.py for the monocular, stereo and RGB-D paths,
+plain and pipelined).
 
-Covered reference behaviors (src/Tracking.cc): StereoInitialization from
-depth, TrackWithMotionModel (window 15, widened to 30 on failure),
+Covered reference behaviors (src/Tracking.cc): MonocularInitialization
+(two-view reconstruction between a reference frame and the current one,
+median-depth scale) and StereoInitialization from depth,
+TrackWithMotionModel (window 15, widened to 30 on failure),
 TrackReferenceKeyFrame (LightGlue when a matcher is given, descriptor
 mutual-NN otherwise), TrackLocalMap (covisible local map, target-side
 projected search through the window-match kernel), NeedNewKeyFrame /
@@ -46,7 +49,7 @@ import torch
 from dani_slam_tpu_torch.core import cameras as _cam
 from dani_slam_tpu_torch.core import lie, scatterless as sless
 from dani_slam_tpu_torch.core import state as mstate
-from dani_slam_tpu_torch.ops import matching, solvers
+from dani_slam_tpu_torch.ops import matching, solvers, stats, twoview
 from dani_slam_tpu_torch.slam.frame import FrameFeatures
 from dani_slam_tpu_torch.utils.device import AsyncRead, pull
 
@@ -61,6 +64,65 @@ class TrackStepOut(NamedTuple):
     n_inliers: torch.Tensor
     st: mstate.MapState
 
+
+# ---------------------------------------------------------------------------
+# Monocular initialization
+# ---------------------------------------------------------------------------
+
+def match_for_init(f0: FrameFeatures, f1: FrameFeatures) -> matching.Matches:
+    return matching.search_for_initialization(
+        f0.xy, f0.valid, f0.desc, f1.xy, f1.valid, f1.desc)
+
+
+def two_view_from_matches(key, cam, f0: FrameFeatures, f1: FrameFeatures,
+                          m: matching.Matches) -> twoview.TwoViewResult:
+    """Two-view reconstruction of the init matches; `key` as for
+    twoview.two_view_init (a Generator or the two index sets)."""
+    r0 = _cam.unproject(cam, f0.xy)
+    r1 = _cam.unproject(cam, f1.xy[m.idx])
+    return twoview.two_view_init(key, r0, r1, m.ok, cam.params[0])
+
+
+def build_initial_map(st: mstate.MapState, cam, f0: FrameFeatures,
+                      f1: FrameFeatures, m: matching.Matches,
+                      tv: twoview.TwoViewResult, frame_id0, frame_id):
+    """The initial two-keyframe map (reference: CreateInitialMapMonocular):
+    the census survivors as landmarks, scaled so that their median depth
+    is 1 (an averaging median, as jnp.nanmedian), and both keyframes.
+    Returns (st, k0, k1, bind1, R21, t21)."""
+    good = m.ok & tv.inliers
+    med = stats.nanmedian(torch.where(good, tv.pts3d[:, 2],
+                                      torch.full_like(tv.pts3d[:, 2],
+                                                      float("nan"))))
+    scale = 1.0 / torch.clamp(med, min=1e-6)
+    pts = tv.pts3d * scale
+    t21 = tv.t21 * scale
+    N = f0.xy.shape[0]
+    dev = f0.xy.device
+    dist = torch.clamp(torch.linalg.norm(pts, dim=-1), min=1e-9)
+    zeros = torch.zeros((N,), dtype=torch.int32, device=dev)
+    st, slots = mstate.insert_landmarks(
+        st, pts, f0.desc, pts / dist[:, None], dist * 0.8, dist * 1.3,
+        zeros, zeros, good)
+    placed = good & (slots >= 0)
+    bind0 = torch.where(placed, slots, torch.full_like(slots, -1))
+    # bindings of the frame's keypoints, formed target-side (no scatter)
+    bind1 = sless.id_lookup(m.idx, placed, slots, N,
+                            torch.full((N,), -1, dtype=slots.dtype,
+                                       device=dev))
+    st, k0 = mstate.insert_keyframe(
+        st, torch.eye(3, device=dev), torch.zeros(3, device=dev), f0.time,
+        frame_id0, f0.xy, f0.valid, f0.desc, f0.depth, f0.octave_or_zeros(),
+        bind0)
+    st, k1 = mstate.insert_keyframe(
+        st, tv.R21, t21, f1.time, frame_id, f1.xy, f1.valid, f1.desc,
+        f1.depth, f1.octave_or_zeros(), bind1)
+    return st, k0, k1, bind1, tv.R21, t21
+
+
+# ---------------------------------------------------------------------------
+# RGB-D / stereo initialization
+# ---------------------------------------------------------------------------
 
 def build_initial_map_rgbd(st: mstate.MapState, cam, f0: FrameFeatures,
                            frame_id: int):
@@ -342,8 +404,10 @@ LOST = "LOST"
 
 
 class Tracker:
-    """Host state machine driving the device steps (RGB-D). The System runs
-    the mapping step after a keyframe is created.
+    """Host state machine driving the device steps for one sensor mode:
+    "mono" (no depth; two-view initialization; keyframe ratio 0.9),
+    "stereo" or "rgbd" (depth; initialization from depth; ratio 0.75). The
+    System runs the mapping step after a keyframe is created.
 
     pipelined=False: each frame's lost/keyframe decision is taken right
     after a blocking pull of its counts. pipelined=True: decisions are
@@ -353,21 +417,25 @@ class Tracker:
     eagerly), and the eager fused function otherwise."""
 
     def __init__(self, cam: _cam.Camera, caps: mstate.MapCaps = None,
-                 sensor: str = "rgbd", min_inliers_track: int = 10,
-                 min_inliers_map: int = 20,
-                 kf_tracked_ratio: float = 0.75,
+                 sensor: str = "rgbd", seed: int = 0,
+                 min_inliers_track: int = 10, min_inliers_map: int = 20,
+                 kf_tracked_ratio: float | None = None,
                  max_frames_between_kf: int = 15,
                  min_frames_between_kf: int = 0, pipelined: bool = False):
-        if sensor != "rgbd":
-            raise NotImplementedError(
-                "this slice of the port tracks RGB-D only")
+        if sensor not in ("mono", "stereo", "rgbd"):
+            raise ValueError(f"sensor={sensor!r}: expected 'mono', "
+                             "'stereo' or 'rgbd'")
         self.cam = cam
         self.device = cam.device
         self.caps = caps or mstate.MapCaps()
         self.sensor = sensor
-        self.use_depth = True
+        self.use_depth = sensor in ("rgbd", "stereo")
         self.min_inliers_track = min_inliers_track
         self.min_inliers_map = min_inliers_map
+        # keyframe-policy ratio by sensor (reference: thRefRatio 0.9 mono,
+        # 0.75 stereo / RGB-D)
+        if kf_tracked_ratio is None:
+            kf_tracked_ratio = 0.9 if sensor == "mono" else 0.75
         self.kf_tracked_ratio = kf_tracked_ratio
         self.max_frames_between_kf = max_frames_between_kf
         self.min_frames_between_kf = min_frames_between_kf
@@ -392,6 +460,12 @@ class Tracker:
         self.eager_frames = 0      # image-path frames run without a graph
         self.rollbacks = 0         # deferred decisions that found a loss
         self.relocalizations = 0   # successful relocalizations
+        # the two-view RANSAC's draws (monocular initialization); survives
+        # reset(). init_sampler(pair_mask) -> (idx_e, idx_h), when set,
+        # supplies the hypotheses' index sets instead (a test replays the
+        # reference package's draws through it)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.init_sampler = None
         self.reset()
 
     def reset(self):
@@ -401,6 +475,8 @@ class Tracker:
         self.st = mstate.empty_map(self.caps, device=dev)
         self.state = NOT_INITIALIZED
         self.frame_id = 0
+        self.init_feat = None      # monocular init's reference frame
+        self._init_feat_fid = 0
         self.last_feat = None
         self.last_bind = None
         self.R = torch.eye(3, device=dev)
@@ -522,21 +598,67 @@ class Tracker:
     # -- init -------------------------------------------------------------
 
     def _initialize(self, feat: FrameFeatures):
-        st2, k0, bind, stats = build_initial_map_rgbd(
+        if self.use_depth:
+            self._initialize_depth(feat)
+        else:
+            self._initialize_mono(feat)
+
+    def _initialize_depth(self, feat: FrameFeatures):
+        st2, k0, bind, stats_ = build_initial_map_rgbd(
             self.st, self.cam, feat, self.frame_id)
-        n_depth, k0_host, n_bound = (int(x) for x in pull(stats))
+        n_depth, k0_host, n_bound = (int(x) for x in pull(stats_))
         if n_depth < 50:
             return
         self.st = st2
-        self.state = OK
         dev = self.device
-        self.R, self.t = torch.eye(3, device=dev), torch.zeros(3, device=dev)
-        self.R_last, self.t_last = self.R, self.t
+        self._post_init(feat, bind, torch.eye(3, device=dev),
+                        torch.zeros(3, device=dev), k0_host, k0, n_bound)
+
+    def _initialize_mono(self, feat: FrameFeatures):
+        """Keep a reference frame (> 100 keypoints) and try a two-view
+        reconstruction against each new frame: >= 100 init matches, else
+        the frame becomes the new reference; an accepted reconstruction
+        makes the two-keyframe map. Each decision is one counted blocking
+        read, as in the reference package (which reads the same four
+        values); on the card an attempt's SVDs wait as well, counted in
+        ops/linalg."""
+        n_kp = int(pull(torch.sum(feat.valid)))
+        if self.init_feat is None:
+            if n_kp > 100:
+                self.init_feat = feat
+                self._init_feat_fid = self.frame_id
+            return
+        if n_kp <= 100:
+            self.init_feat = None
+            return
+        m = match_for_init(self.init_feat, feat)
+        if int(pull(torch.sum(m.ok))) < 100:
+            self.init_feat = feat
+            self._init_feat_fid = self.frame_id
+            return
+        key = (self.gen if self.init_sampler is None
+               else self.init_sampler(m.ok))
+        tv = two_view_from_matches(key, self.cam, self.init_feat, feat, m)
+        if not bool(pull(tv.ok)):
+            return
+        st, _, k1, bind1, R, t = build_initial_map(
+            self.st, self.cam, self.init_feat, feat, m, tv,
+            self._init_feat_fid, self.frame_id)
+        k1_host, n_bound = (int(x) for x in pull(torch.stack([
+            k1.to(torch.int64), torch.sum(bind1 >= 0).to(torch.int64)])))
+        self.st = st
+        self._post_init(feat, bind1, R, t, k1_host, k1, n_bound)
+        self.init_feat = None
+
+    def _post_init(self, feat, bind, R, t, ref_kf, ref_kf_dev, n_bound):
+        self.state = OK
+        self.R, self.t = R, t
+        self.R_last, self.t_last = R, t
         self.last_feat = feat
         self.last_bind = bind
-        self.ref_kf = k0_host
+        self.ref_kf = ref_kf
         self.ref_kf_fid = self.frame_id
-        self.ref_kf_dev = k0
+        self.ref_kf_dev = ref_kf_dev
         self.ref_kf_tracked = n_bound
         self.last_kf_frame = self.frame_id
         self.vel = None
@@ -562,7 +684,8 @@ class Tracker:
         if n_track < self.min_inliers_track or n < self.min_inliers_map:
             # localization mode outside the mapped region: frame-to-frame
             # VO on the last frame's depth points
-            if self.localization_vo and self.last_feat is not None:
+            if self.localization_vo and self.use_depth and \
+                    self.last_feat is not None:
                 R_pred, t_pred = lie.se3_mul(Rv, tv, R_cur, t_cur) \
                     if has_vel else (R_cur, t_cur)
                 lf = self.last_feat

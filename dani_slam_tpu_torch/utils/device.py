@@ -24,10 +24,13 @@ def resolve_device(device) -> torch.device:
 
 
 class SyncCounter:
-    """Counts device->host reads that made the host wait for the device."""
+    """Counts device->host reads that made the host wait for the device.
+    `svd` counts the card's SVDs among them (ops/linalg.svd): torch's sync
+    debug mode flags each of those twice, every other counted wait once."""
 
     def __init__(self):
         self.count = 0
+        self.svd = 0
 
 
 class AsyncCounter:
@@ -81,6 +84,8 @@ class AsyncRead:
 
 @functools.lru_cache(maxsize=256)
 def _const(values, dtype, device):
+    if device.type == "cuda":
+        SYNCS.count += 1         # staged once: a blocking copy to the card
     return torch.tensor(values, dtype=dtype, device=device)
 
 

@@ -2,11 +2,12 @@
 dani_slam_tpu/utils/synthetic.py), built with numpy and the port itself so
 that a run on the card needs no JAX: an orbit trajectory, rasterized
 textured corner spots with depth, the moving warm textured board the shipped
-detector was trained on, feature-level frames of a random landmark cloud
+detector was trained on, a rectified stereo pair of the same world, feature-level frames of a random landmark cloud
 with unique descriptors and their true ids (make_world / render_frame),
 which exercise the SLAM layers without the learned frontend, and the
 drifted loop map of the loop-closing tests and bench
-(make_drifted_loop_state).
+(make_drifted_loop_state), and the two-view rays of the initialization
+checks (two_view_rays).
 The arithmetic follows the reference package's float32 steps so that the
 same seed renders the same frames (up to float rounding at the last bit).
 """
@@ -141,16 +142,13 @@ def stamp_dynamic_object(img, depth, cam_f, uv, z, wh_m, offsets, amps):
     return img, depth
 
 
-def make_rgbd_image_sequence(cam_params, width: int, height: int, R_gt, t_gt,
-                             seed: int = 0, with_object: bool = True,
-                             sample_every: int = 6, per_batch: int = 160,
-                             fps: float = 30.0):
-    """RGB-D sequence along (R_gt [F,3,3], t_gt [F,3]): frustum-sampled
-    textured points on a jittered grid plus the moving board at ~4 m
-    crossing laterally (-1.8 + 0.07 i m). cam_params = [fx, fy, cx, cy].
-    Returns (imgs [F] uint8 HxWx3, depths [F] uint16, times [F])."""
+def sequence_world(rng, cam_params, width: int, height: int, R_gt, t_gt,
+                   sample_every: int = 6, per_batch: int = 160):
+    """The textured world of the image sequences: per_batch points on a
+    jittered 16x10 grid of every sample_every-th frame's view (and the
+    last frame's) at depths 4-11 m, and their brightness; draws from the
+    numpy RandomState `rng`. Returns (points [M,3] f32, brightness [M])."""
     n_frames = len(R_gt)
-    rng = np.random.RandomState(seed)
     fx, fy, cx, cy = (float(x) for x in np.asarray(cam_params)[:4])
     pts_list = []
     for j in list(range(0, n_frames, sample_every)) + [n_frames - 1]:
@@ -165,6 +163,22 @@ def make_rgbd_image_sequence(cam_params, width: int, height: int, R_gt, t_gt,
         pts_list.append((Rj.T @ (pc - tj).T).T.astype(np.float32))
     pts = np.concatenate(pts_list, 0)
     bright = rng.uniform(150, 230, len(pts)).astype(np.float32)
+    return pts, bright
+
+
+def make_rgbd_image_sequence(cam_params, width: int, height: int, R_gt, t_gt,
+                             seed: int = 0, with_object: bool = True,
+                             sample_every: int = 6, per_batch: int = 160,
+                             fps: float = 30.0):
+    """RGB-D sequence along (R_gt [F,3,3], t_gt [F,3]): frustum-sampled
+    textured points on a jittered grid plus the moving board at ~4 m
+    crossing laterally (-1.8 + 0.07 i m). cam_params = [fx, fy, cx, cy].
+    Returns (imgs [F] uint8 HxWx3, depths [F] uint16, times [F])."""
+    n_frames = len(R_gt)
+    rng = np.random.RandomState(seed)
+    fx = float(np.asarray(cam_params)[0])
+    pts, bright = sequence_world(rng, cam_params, width, height, R_gt, t_gt,
+                                 sample_every, per_batch)
     obj_off = [(rng.uniform(-48, 48), rng.uniform(-33, 33))
                for _ in range(40)]
     obj_amp = [rng.uniform(150, 215) for _ in range(40)]
@@ -189,6 +203,52 @@ def make_rgbd_image_sequence(cam_params, width: int, height: int, R_gt, t_gt,
         deps.append(de.astype(np.uint16))
         times.append(i / fps)
     return imgs, deps, times
+
+
+def make_stereo_image_sequence(cam_params, width: int, height: int, R_gt,
+                               t_gt, baseline: float = 0.12, seed: int = 0,
+                               fps: float = 30.0):
+    """Rectified stereo sequence of the same world as
+    make_rgbd_image_sequence (same seed, same points) without the moving
+    board: the left camera at T_cw = (R, t), the right one `baseline`
+    metres along the left camera's +x, T_cw = (R, t + [-b, 0, 0]); each
+    image has its own pixel noise. Returns (left [F] uint8 HxW, right [F]
+    uint8 HxW, times [F])."""
+    rng = np.random.RandomState(seed)
+    pts, bright = sequence_world(rng, cam_params, width, height, R_gt, t_gt)
+    params = np.asarray(cam_params, np.float32)
+    off = np.asarray([-baseline, 0.0, 0.0], np.float32)
+    lefts, rights, times = [], [], []
+    for i in range(len(R_gt)):
+        lefts.append(render_image_depth(pts, bright, params, width, height,
+                                        R_gt[i], t_gt[i], seed=i)[0])
+        rights.append(render_image_depth(pts, bright, params, width, height,
+                                         R_gt[i], t_gt[i] + off,
+                                         seed=10_000 + i)[0])
+        times.append(i / fps)
+    return lefts, rights, times
+
+
+def two_view_rays(n: int = 300, seed: int = 5, noise_px: float = 0.5,
+                  focal: float = 520.0):
+    """Normalized rays of a seeded scene in two views (unit baseline),
+    `noise_px` of pixel noise, a fifth of the second view's rays corrupted,
+    and fixed hypothesis index sets for ops/twoview.two_view_init. Returns
+    (r1 [n,3], r2 [n,3], R_21, unit t_21, (idx8 [256,8], idx4 [256,4]))."""
+    import torch
+    from dani_slam_tpu_torch.core import lie
+    rng = np.random.RandomState(seed)
+    pts = rng.randn(n, 3).astype(np.float32) * [2.0, 1.5, 1.0]
+    pts[:, 2] = rng.uniform(3, 10, n)
+    R, t = lie.se3_exp(torch.tensor([0.4, 0.1, 0.05, 0.02, -0.06, 0.01]))
+    R, t = R.numpy(), (t / torch.linalg.norm(t)).numpy()
+    p2 = pts @ R.T + t
+    r1, r2 = pts / pts[:, 2:], p2 / p2[:, 2:]
+    r1[:, :2] += rng.randn(n, 2) * noise_px / focal
+    r2[:, :2] += rng.randn(n, 2) * noise_px / focal
+    r2[: n // 5, :2] += rng.uniform(0.05, 0.2, (n // 5, 2))
+    idx = (rng.randint(0, n, (256, 8)), rng.randint(0, n, (256, 4)))
+    return r1.astype(np.float32), r2.astype(np.float32), R, t, idx
 
 
 def make_world(n_points: int = 2000, desc_dim: int = 64, seed: int = 0,

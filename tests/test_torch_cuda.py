@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs a CUDA device and skips on a host without one. The
-file imports neither JAX nor the JAX package, so that it also runs where
-only PyTorch is installed:
+Every test here needs a CUDA device and skips on a host without one (the
+last two hold the monocular initialization and the stereo depth on the card
+against the CPU). The file imports neither JAX nor the JAX package, so
+that it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -205,3 +206,24 @@ def test_frame_graph_replay_equals_eager_fused_function(dev):
         np.testing.assert_allclose(a[1], b[1], atol=1e-5)
         np.testing.assert_allclose(a[2], b[2], atol=1e-5)
     assert torch.equal(bg, be)
+
+
+def test_two_view_init_card_equals_cpu(dev):
+    """Monocular initialization on the card (batched SVDs through
+    cuSOLVER) against the CPU on the same rays and the same injected draws:
+    the same decision, R within 1e-4, unit t within 1e-3 (the limits of
+    utils/agreement.two_view_init)."""
+    from dani_slam_tpu_torch.utils import agreement
+    r = agreement.two_view_init(dev)
+    assert r["ok"], r
+
+
+def test_stereo_depth_card_equals_cpu(dev):
+    """stereo_match_depth and its LightGlue variant on the card against the
+    CPU on one rendered 640x480 pair's SuperPoint keypoints: the same depth
+    set (LightGlue: >= 97 % of the rows, its bf16 layers round on other
+    units) and the same values where both matched (the limits of
+    utils/agreement.stereo_depth)."""
+    from dani_slam_tpu_torch.utils import agreement
+    r = agreement.stereo_depth(dev)
+    assert r["ok"], r

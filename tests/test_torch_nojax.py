@@ -1,8 +1,9 @@
 """The port stands alone: every module of dani_slam_tpu_torch (and
 chip_smoke.py) imports with `jax` and `dani_slam_tpu` blocked, and its entry
-points (System with loop closing and relocalization on by default, the
-vocabulary, the LoopCloser) default to CUDA and raise on a host without it
-instead of running on the CPU.
+points (System for the monocular, stereo and RGB-D sensors, with loop
+closing and relocalization on by default, the vocabulary, the LoopCloser,
+the KB8 camera) default to CUDA and raise on a host without it instead of
+running on the CPU; the inertial sensors raise NotImplementedError.
 
 This runs in a subprocess because tests/conftest.py imports JAX into the
 test process itself.
@@ -27,13 +28,20 @@ import torch
 from dani_slam_tpu_torch.core import cameras, state
 from dani_slam_tpu_torch.models import lightglue, superpoint, vocab, yolo
 from dani_slam_tpu_torch.slam import loopclosing
-from dani_slam_tpu_torch.slam.system import System
+from dani_slam_tpu_torch.slam.system import Sensor, System
 cam = cameras.Camera.pinhole(300.0, 300.0, 160.0, 120.0, 320, 240,
                              device="cpu")
 default_raises = {}
 for name, fn in (("System", lambda: System(cam)),
+                 ("System(MONOCULAR, n_levels=8)",
+                  lambda: System(cam, Sensor.MONOCULAR, n_levels=8,
+                                 pipelined=True)),
+                 ("System(STEREO)",
+                  lambda: System(cam, Sensor.STEREO, pipelined=True)),
                  ("Camera.pinhole",
                   lambda: cameras.Camera.pinhole(1, 1, 1, 1, 2, 2)),
+                 ("Camera.kb8",
+                  lambda: cameras.Camera.kb8(1, 1, 1, 1, 0, 0, 0, 0, 2, 2)),
                  ("empty_map", lambda: state.empty_map()),
                  ("superpoint.load_default_params",
                   lambda: superpoint.load_default_params()),
@@ -54,6 +62,13 @@ for name, fn in (("System", lambda: System(cam)),
         default_raises[name] = False
     except RuntimeError as e:
         default_raises[name] = "cuda" in str(e).lower()
+imu_raises = {}
+for sensor in (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO, Sensor.IMU_RGBD):
+    try:
+        System(cam, sensor, device="cpu")
+        imu_raises[sensor.name] = False
+    except NotImplementedError:
+        imu_raises[sensor.name] = True
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                        "dani_slam_tpu")
@@ -64,7 +79,8 @@ defaults_on = (sig["enable_loop_closing"].default is True and
                sig["enable_relocalization"].default is True)
 print(json.dumps({"n": len(mods), "loaded": loaded, "defaults_on": defaults_on,
                   "cuda": torch.cuda.is_available(),
-                  "default_raises": default_raises}))
+                  "default_raises": default_raises,
+                  "imu_raises": imu_raises}))
 """
 
 
@@ -85,7 +101,8 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
     for new in ("models.lightglue", "models.vocab", "slam.atlas",
                 "slam.framegraph", "slam.loopclosing", "ops.pnp",
                 "ops.sim3", "ops.posegraph", "ops.ba_large",
-                "utils.checkpoint"):
+                "utils.checkpoint", "ops.twoview", "ops.rectify",
+                "ops.stats"):
         assert f"{PKG}.{new}" in mods
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -97,5 +114,6 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
     assert out["n"] == len(mods)
     assert out["loaded"] == []
     assert out["defaults_on"]
+    assert all(out["imu_raises"].values()), out["imu_raises"]
     if not out["cuda"]:        # with a card the default device is usable
         assert all(out["default_raises"].values()), out["default_raises"]
