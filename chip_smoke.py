@@ -78,7 +78,26 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
  11. the new functions on the card against the CPU on small inputs:
      two_view_init with injected draws (and the synchronizing calls of one
      call), stereo_match_depth and its LightGlue variant, stereo_fisheye_
-     depth, the rectifier's grids and remap of one pair, extract_multiscale.
+     depth, the rectifier's grids and remap of one pair, extract_multiscale;
+ 12. bench.py's official pass: the main path's configuration with the
+     reference-scale nets (models/yolo_official's yolov5s as the detector,
+     models/lightglue_official's LightGlue 256x9 as the matcher, the shipped
+     official weights): a warm-up pass (capturing their frame graph and
+     recording both kernels' arguments outside the capture), three timed
+     passes on fresh Systems, counters set to 0 before each and read after;
+     bench.py's checks (>= 51/60, >= 5 keyframes, >= 1000 landmarks,
+     detector fired) on the last, >= 50 graph replays, both kernels and the
+     official LightGlue counted, finite poses, the ATE; both kernels held
+     against their plain versions and timed on the recorded calls; the
+     official nets on the card against the CPU and their eager times
+     (match_pairs at 1 x 1024^2 and 5 x 512^2, yolov5s at 384x512);
+ 13. the RGB-D runner as a user runs it: 30 frames of the bench sequence
+     written as a TUM directory (PPM colour, 16-bit PGM depth, assoc.txt,
+     settings.yaml), `python -m dani_slam_tpu_torch.examples.rgbd_tum ...
+     --detector` in a subprocess on the default device (cuda): a trajectory
+     row per pose, at the sequence's timestamps, the log naming cuda; then
+     save_atlas / load_atlas on the card and a frame tracked against the
+     loaded map.
 
 The line before the last is {"kernels": [...]} with each kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without CUDA, or run outside
@@ -418,15 +437,17 @@ OLD = dict(matcher=None, pipelined=False, enable_loop_closing=False,
 def make_system(device, caps, n_feat, width, height, f, mode,
                 detector=True):
     """A fresh System in configuration `mode`, with bench.py's keypoint
-    threshold."""
+    threshold; `detector` True for the shipped compact one, False for
+    none, or a models.yolo.Detector."""
     from dani_slam_tpu_torch.core import cameras
     from dani_slam_tpu_torch.models import yolo
     from dani_slam_tpu_torch.slam.system import Sensor, System
     cam = cameras.Camera.pinhole(f, f, width / 2, height / 2, width, height,
                                  device=device)
+    if detector is True:
+        detector = yolo.load_default_detector(device)
     sys_ = System(cam, Sensor.RGBD, caps=caps, n_features=n_feat,
-                  detector=yolo.load_default_detector(device) if detector
-                  else None, device=device, **mode)
+                  detector=detector or None, device=device, **mode)
     sys_.sp_threshold = 0.012
     return sys_
 
@@ -441,22 +462,33 @@ def frames_on(device, seq):
 
 
 def run_system(device, caps, n_feat, seq, width, height, f, mode,
-               n_frames=None, frame_graph=None):
-    """One pass through a fresh System; returns (system, n_ok, seconds)."""
-    sys_ = make_system(device, caps, n_feat, width, height, f, mode)
+               n_frames=None, frame_graph=None, detector=True,
+               sync_debug=False):
+    """One pass through a fresh System; returns (system, n_ok, seconds).
+    sync_debug: torch's sync debug mode warns at every synchronizing call
+    of the frames (not of the set-up)."""
+    import torch
+    sys_ = make_system(device, caps, n_feat, width, height, f, mode,
+                       detector=detector)
     if frame_graph is not None:
         sys_.tracker.frame_graph = frame_graph
     imgs, deps, times = frames_on(device, seq)
     if device == "cuda":
         _sync()
+    if sync_debug:
+        torch.cuda.set_sync_debug_mode("warn")
     t0 = time.perf_counter()
     n_ok = 0
-    for i in range(n_frames or len(imgs)):
-        state, _, _ = sys_.track_rgbd(imgs[i], deps[i], times[i])
-        n_ok += state == "OK"
-    sys_.shutdown()
-    if device == "cuda":
-        _sync()
+    try:
+        for i in range(n_frames or len(imgs)):
+            state, _, _ = sys_.track_rgbd(imgs[i], deps[i], times[i])
+            n_ok += state == "OK"
+        sys_.shutdown()
+        if device == "cuda":
+            _sync()
+    finally:
+        if sync_debug:
+            torch.cuda.set_sync_debug_mode("default")
     return sys_, n_ok, time.perf_counter() - t0
 
 
@@ -471,15 +503,20 @@ def trajectory_ate(sys_, seq):
     return C_est, ev.ate_rmse(C_est, C_gt)
 
 
-def check_lightglue(width, height):
-    """LightGlue on the card against the CPU on one pair of 1024 keypoints,
-    and its time per forward at the two call shapes of the main path. The
-    bf16 layers of the two devices round differently (as the two libraries
-    do in tests/test_torch_lightglue.py): probabilities within 0.03, match
-    sets differing on at most 2 % of the rows."""
+def check_lightglue(width, height, load=None, name="LightGlue",
+                    prob_tol=0.03, row_tol=20):
+    """A LightGlue (the shipped compact one unless `load(device)` gives
+    another MatcherState) on the card against the CPU on one pair of 1024
+    keypoints, and its time per forward at the two call shapes of the main
+    path. The bf16 layers of the two devices round differently (as the two
+    libraries do in tests/test_torch_lightglue.py): probabilities within
+    prob_tol, match sets differing on at most row_tol of the 1024 rows."""
     import numpy as np
     import torch
     from dani_slam_tpu_torch.models import lightglue as lg
+    if load is None:
+        def load(dev):
+            return lg.load_default_matcher(width, height, device=dev)
     rng = np.random.RandomState(0)
 
     def pair(b, n):
@@ -497,26 +534,27 @@ def check_lightglue(width, height):
     a = pair(1, 1024)
     outs = {}
     for dev in ("cpu", "cuda"):
-        ms = lg.load_default_matcher(width, height, device=dev)
+        ms = load(dev)
         outs[dev] = [x.cpu().numpy() for x in lg.match_pairs(
             ms.model, *(torch.as_tensor(x, device=dev) for x in a), width,
             height)]
     (ic, bc, okc), (ig, bg, okg) = outs["cpu"], outs["cuda"]
     d_best = float(np.abs(bc - bg).max())
     differ = int(((okc != okg) | (okc & okg & (ic != ig))).sum())
-    print(f"LightGlue card vs CPU, 1 x 1024 x 1024 keypoints: accepted "
+    print(f"{name} card vs CPU, 1 x 1024 x 1024 keypoints: accepted "
           f"{int(okg.sum())} / {int(okc.sum())}, best probability differs "
-          f"by at most {d_best:.4f} (limit 0.03), {differ} of 1024 rows "
-          f"differ in match (limit 20)", flush=True)
-    if not (d_best < 0.03 and differ <= 20 and okg.sum() > 100):
-        raise SystemExit("LightGlue on the card disagrees with the CPU")
-    ms = lg.load_default_matcher(width, height, device="cuda")
+          f"by at most {d_best:.4f} (limit {prob_tol}), {differ} of 1024 "
+          f"rows differ in match (limit {row_tol})", flush=True)
+    if not (d_best < prob_tol and differ <= row_tol and okg.sum() > 100):
+        raise SystemExit(f"{name} on the card disagrees with the CPU")
+    ms = load("cuda")
     times = {}
-    for name, (b, n) in (("1x1024", (1, 1024)), ("5x512", (5, 512))):
+    for shape, (b, n) in (("1x1024", (1, 1024)), ("5x512", (5, 512))):
         args = [torch.as_tensor(x, device="cuda") for x in pair(b, n)]
-        times[name] = time_ms(lambda: lg.match_pairs(ms.model, *args, width,
-                                                     height), reps=10)
-    print(f"LightGlue forward (match_pairs, eager, CUDA events, median of "
+        times[shape] = time_ms(lambda: lg.match_pairs(ms.model, *args,
+                                                      width, height),
+                               reps=10)
+    print(f"{name} forward (match_pairs, eager, CUDA events, median of "
           f"10): {times['1x1024']:.3f} ms at 1 x 1024^2 tokens, "
           f"{times['5x512']:.3f} ms at 5 x 512^2", flush=True)
     return times
@@ -1333,6 +1371,302 @@ def check_sensor_functions_card_vs_cpu():
         raise SystemExit("extract_multiscale: card and CPU disagree")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: bench.py's official-scale pass
+# ---------------------------------------------------------------------------
+
+def official_pass(caps, seq, kernels, W, H, f, n_timed=3):
+    """bench.py's `official` pass: the main path's configuration with the
+    reference-scale nets (yolov5s as the detector, LightGlue 256x9 as the
+    matcher). A warm-up pass (which captures the frame graph of these
+    nets, and records both kernels' arguments outside the capture), then
+    n_timed passes on fresh Systems, every counter set to 0 just before
+    each and read just after; bench.py's checks on the last one."""
+    import warnings
+    import numpy as np
+    import torch
+    from dani_slam_tpu_torch.models import lightglue, lightglue_official
+    from dani_slam_tpu_torch.models import yolo_official
+    from dani_slam_tpu_torch.utils import device as devmod
+    matcher = lightglue_official.load_official_matcher(W, H, device="cuda")
+    det = yolo_official.load_official_detector(device="cuda")
+    if matcher is None or det is None:
+        raise SystemExit("official-scale weights absent (matcher "
+                         f"{matcher is not None}, detector {det is not None})")
+    mode = dict(matcher=matcher, pipelined=True)
+    outside_capture = lambda a: isinstance(a[6], torch.Tensor) and \
+        not torch.cuda.is_current_stream_capturing()   # noqa: E731
+    devmod.SYNCS.count = devmod.SYNCS.svd = devmod.ASYNC.waited = 0
+    with ArgRecorder(kernels, "window_match_topk2",
+                     keep=outside_capture) as wm, \
+            ArgRecorder(kernels, "lba_landmark_blocks") as lb, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, n_ok_w, dt_w = run_system("cuda", caps, 1024, seq, W, H, f, mode,
+                                     detector=det, sync_debug=True)
+    sites = sync_sites(caught)
+    waits = uncounted_waits(sites, devmod.SYNCS.count, devmod.SYNCS.svd,
+                            devmod.ASYNC.waited)
+    print(f"warm-up pass (captures the official nets' frame graph): "
+          f"{n_ok_w}/60 tracked in {dt_w:.2f} s; synchronizing calls of its "
+          f"frames flagged by torch's sync debug mode: "
+          f"{sum(sites.values())}, blocking reads counted: "
+          f"{devmod.SYNCS.count} ({devmod.ASYNC.waited} AsyncRead waits); "
+          f"flags at the counted lines {waits['flagged']}, expected "
+          f"{waits['expected']}; by call site: {sites.most_common(12)}",
+          flush=True)
+    fps = []
+    for _ in range(n_timed):
+        kernels.reset_launch_counts()
+        lightglue.FORWARDS.count = 0
+        devmod.SYNCS.count = devmod.ASYNC.ready = devmod.ASYNC.waited = 0
+        sys_, n_ok, dt = run_system("cuda", caps, 1024, seq, W, H, f, mode,
+                                    detector=det)
+        launches = kernels.launch_counts()
+        lg_forwards = lightglue.FORWARDS.count
+        syncs = devmod.SYNCS.count
+        fps.append(60 / dt)
+    tr = sys_.tracker
+    n_kf, n_lm = sys_.n_keyframes(), sys_.n_landmarks()
+    dyn = float(tr.dynamic_ratio)
+    C_est, ate = trajectory_ate(sys_, seq)
+    print(f"timed passes: {[round(x, 2) for x in fps]} FPS (median "
+          f"{statistics.median(fps):.2f}); the last: tracked {n_ok}/60, "
+          f"{n_kf} keyframes ({sys_._kf_count} keyframe steps), {n_lm} "
+          f"landmarks, last dyn_ratio {dyn:.3f}, {1e3 / fps[-1]:.1f} "
+          f"ms/frame, {syncs / 60:.2f} blocking host syncs/frame, "
+          f"{tr.graph_replays} graph replays, {tr.eager_frames} eager image "
+          f"frames, {tr.rollbacks} rollbacks, ATE {ate:.4f} m, launches "
+          f"{launches}, official LightGlue forwards {lg_forwards}", flush=True)
+    checks = {
+        "tracked >= 51/60": n_ok >= 51,
+        "keyframes >= 5": n_kf >= 5,
+        "landmarks >= 1000": n_lm >= 1000,
+        "detector fired": dyn > 0.0,
+        "poses finite": bool(np.all(np.isfinite(C_est))),
+        "graph replays >= 50": tr.graph_replays >= 50,
+        "window_match_topk2 ran on every tracked frame":
+        launches["window_match_topk2"] >= tr.graph_replays > 0,
+        "lba_landmark_blocks launched": launches["lba_landmark_blocks"] > 0,
+        "lba_plan launched": launches["lba_plan"] > 0,
+        "official LightGlue forwards > 0": lg_forwards > 0,
+        "the System ran the official nets":
+        sys_.matcher.model is matcher.model and sys_.detector is det,
+        "both kernels' arguments recorded": wm.args is not None and
+        lb.args is not None,
+        f"every host wait of the port counted {waits}": waits["ok"],
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"official-pass checks failed: {failed}")
+    return dict(launches=launches, wm_args=wm.args, lba_args=lb.args[:3],
+                fps=fps, ate=ate, n_kf=n_kf, n_lm=n_lm)
+
+
+def replay_costs(width, height):
+    """Device time of one replay of each captured 640x480 frame program of
+    the bench's configuration (compact and official nets), CUDA events
+    around a replay (median of 10), and its kernel count and summed kernel
+    time under torch.profiler over 2 replays."""
+    from torch.profiler import ProfilerActivity, profile
+    from dani_slam_tpu_torch.slam import framegraph
+    out = {}
+    for g in framegraph._GRAPHS.values():
+        if tuple(g.img.shape[:2]) != (height, width) or g.matcher is None \
+                or g.st.caps.N != 1024 or g.detector is None:
+            continue
+        name = (f"{type(g.detector.model).__name__} + "
+                f"{type(g.matcher.model).__name__}")
+        ms = time_ms(g.graph.replay, reps=10, warmup=2)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            g.graph.replay()
+            g.graph.replay()
+            _sync()
+        ks = _kernel_events(prof)
+        out[name] = (ms, len(ks) / 2,
+                     sum(e.device_time_total for e in ks) / 2e3)
+        print(f"  {ms:8.3f} ms a replay, {out[name][1]:7.0f} kernels, "
+              f"{out[name][2]:8.3f} ms summed kernel time  frame program "
+              f"with {name}", flush=True)
+    if len(out) != 2:
+        raise SystemExit(f"expected the compact and the official frame "
+                         f"programs, found {sorted(out)}")
+    return out
+
+
+def check_official_nets():
+    """The official nets on the card against the same modules on the CPU,
+    and their eager times: LightGlue 256x9 through match_pairs (probabilities
+    within 0.05, match rows differing on at most 30 of 1024: nine bf16
+    layers compound the two devices' rounding, where the compact net's six
+    are held to 0.03 and 20), and yolov5s's raw heads at 384x512 within
+    0.1 + 3 % and 0.02 on average (tests/test_torch_official_models.py's
+    bf16 rule)."""
+    import numpy as np
+    import torch
+    from dani_slam_tpu_torch.models import lightglue_official, yolo_official
+    times = check_lightglue(
+        640, 480, name="official LightGlue 256x9",
+        load=lambda dev: lightglue_official.load_official_matcher(
+            640, 480, device=dev), prob_tol=0.05, row_tol=30)
+    x = np.random.RandomState(2).rand(384, 512, 3).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = yolo_official.load_official_detector(device=dev).model
+        with torch.no_grad():
+            outs[dev] = [o.cpu().numpy() for o in
+                         model(torch.as_tensor(x, device=dev))]
+    excess = max(float((np.abs(g - c) - 0.1 - 0.03 * np.abs(c)).max())
+                 for g, c in zip(outs["cuda"], outs["cpu"]))
+    mean = max(float(np.abs(g - c).mean())
+               for g, c in zip(outs["cuda"], outs["cpu"]))
+    print(f"yolov5s card vs CPU, heads at 384x512: largest excess over 0.1 "
+          f"+ 3 % {excess:.4f} (must be <= 0), mean difference {mean:.4f} "
+          f"(limit 0.02)", flush=True)
+    if excess > 0 or mean >= 0.02:
+        raise SystemExit("yolov5s on the card disagrees with the CPU")
+    model = yolo_official.load_official_detector(device="cuda").model
+    xg = torch.as_tensor(x, device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            model(xg)
+    times["yolov5s_384x512"] = time_ms(forward, reps=10)
+    print(f"yolov5s forward (eager, CUDA events, median of 10): "
+          f"{times['yolov5s_384x512']:.3f} ms at 384x512", flush=True)
+    return times
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the RGB-D runner on a sequence written to disk
+# ---------------------------------------------------------------------------
+
+def write_tum_sequence(seq, n, out_dir):
+    """The first n frames of the bench sequence as a TUM RGB-D directory:
+    rgb/*.ppm (PNM: the card's machine has no PIL), depth/*.pgm (16 bit,
+    factor 5000), assoc.txt at epoch-scale timestamps, settings.yaml."""
+    import numpy as np
+    _, _, imgs, deps, times = seq
+    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+    t0 = 1305031102.175
+    lines = []
+    for i in range(n):
+        rgb, dep = f"rgb/{i:04d}.ppm", f"depth/{i:04d}.pgm"
+        h, w = imgs[i].shape[:2]
+        with open(os.path.join(out_dir, rgb), "wb") as fh:
+            fh.write(f"P6\n{w} {h}\n255\n".encode() +
+                     np.ascontiguousarray(imgs[i], np.uint8).tobytes())
+        with open(os.path.join(out_dir, dep), "wb") as fh:
+            fh.write(f"P5\n{w} {h}\n65535\n".encode() +
+                     np.asarray(deps[i], ">u2").tobytes())
+        t = t0 + times[i]
+        lines.append(f"{t:.6f} {rgb} {t:.6f} {dep}")
+    with open(os.path.join(out_dir, "assoc.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(os.path.join(out_dir, "settings.yaml"), "w") as fh:
+        fh.write("%YAML:1.0\nCamera1.fx: 500.0\nCamera1.fy: 500.0\n"
+                 "Camera1.cx: 320.0\nCamera1.cy: 240.0\nCamera.width: 640\n"
+                 "Camera.height: 480\nRGBD.DepthMapFactor: 5000.0\n"
+                 "ORBextractor.nFeatures: 1024\n")
+    return t0
+
+
+def runner_pass(seq, n=30):
+    """python -m dani_slam_tpu_torch.examples.rgbd_tum on n frames of the
+    bench sequence written to disk (detector on, default device cuda), as
+    a user runs it: the trajectory must have a row per pose the runner
+    reports, at the sequence's timestamps, and the log must name cuda."""
+    import numpy as np
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_tum")
+    t0 = write_tum_sequence(seq, n, out_dir)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dani_slam_tpu_torch.examples.rgbd_tum",
+         os.path.join(out_dir, "settings.yaml"), out_dir,
+         os.path.join(out_dir, "assoc.txt"), "--out-prefix",
+         os.path.join(out_dir, "out_"), "--detector"],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
+    dt = time.perf_counter() - t1
+    print("runner output:\n  " + "\n  ".join(proc.stdout.splitlines()[-6:]),
+          flush=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"rgbd_tum runner failed ({proc.returncode}): "
+                         f"{proc.stderr[-3000:]}")
+    traj = np.loadtxt(os.path.join(out_dir, "out_CameraTrajectory.txt"),
+                      ndmin=2)
+    done = [ln for ln in proc.stdout.splitlines() if ln.startswith("done:")]
+    poses = int(done[-1].split(",")[1].split()[0]) if done else -1
+    stamps = t0 + np.asarray([i / 30.0 for i in range(n)])
+    checks = {
+        "the log names cuda": "device cuda" in proc.stdout and
+        "on cuda" in proc.stdout,
+        "a row per pose the runner reports": traj.shape == (poses, 8),
+        "tracked >= 26/30": poses >= 26,
+        "rows at the sequence's timestamps": bool(np.all(np.min(np.abs(
+            traj[:, :1] - stamps[None]), axis=1) < 1e-3)),
+        "poses finite": bool(np.isfinite(traj).all()),
+        "ExecMean.txt written": os.path.exists(
+            os.path.join(out_dir, "out_ExecMean.txt")),
+    }
+    print(f"runner: {poses} poses of {n} frames in {dt:.1f} s (process "
+          f"start, model loads and kernel loads included); checks "
+          f"{checks}", flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"runner checks failed: {failed}")
+
+
+def atlas_round_trip():
+    """save_atlas / load_atlas on the card, then a frame from a mapped view
+    tracks against the loaded map (tests/test_config_io.py's persistence
+    case: 12 rendered feature frames, K 32 / L 4096 / N 256 / D 64)."""
+    import numpy as np
+    import torch
+    from dani_slam_tpu_torch.core import cameras
+    from dani_slam_tpu_torch.core import state as mstate
+    from dani_slam_tpu_torch.slam.system import Sensor, System
+    from dani_slam_tpu_torch.utils import synthetic
+    cam = cameras.Camera.pinhole(500., 500., 320., 240., 640, 480,
+                                 device="cuda")
+    caps = mstate.MapCaps(K=32, L=4096, N=256, D=64)
+    world = synthetic.make_world(1200, desc_dim=64, seed=11)
+    R_gt, t_gt = synthetic.orbit_trajectory(12, radius=10., angle_span=0.25)
+
+    def frame(i, seed, tm):
+        return synthetic.render_frame(world, cam, R_gt[i], t_gt[i], n_max=256,
+                                      noise_px=0.3, seed=seed,
+                                      with_depth=True, time=tm)[0]
+
+    def make():
+        return System(cam, Sensor.RGBD, caps=caps, n_features=256, seed=3,
+                      device="cuda")
+    sys1 = make()
+    for i in range(12):
+        sys1.track_features(frame(i, i, i / 30.0), timestamp=i / 30.0)
+    path = os.path.join(ROOT, "build", "chip_smoke_atlas.npz")
+    sys1.save_atlas(path)
+    sys2 = make()
+    sys2.load_atlas(path)
+    same = sys2.n_keyframes() == sys1.n_keyframes() and \
+        sys2.n_landmarks() == sys1.n_landmarks() and \
+        torch.equal(sys2.loop_closer.bow, sys1.loop_closer.bow)
+    state, R, t = sys2.track_features(frame(5, 99, 1.0), timestamp=1.0)
+    C = -np.asarray(R.cpu()).T @ np.asarray(t.cpu())
+    C_gt = R_gt[0] @ (-R_gt[5].T @ t_gt[5]) + t_gt[0]
+    err = float(np.linalg.norm(C - C_gt))
+    print(f"atlas round trip on the card: {sys1.n_keyframes()} keyframes, "
+          f"{sys1.n_landmarks()} landmarks saved and loaded "
+          f"({'identical' if same else 'DIFFERENT'}), a frame from "
+          f"keyframe 5's view: {state}, centre {err:.4f} m from the truth "
+          f"(limit 0.05)", flush=True)
+    if not same or state != "OK" or err >= 0.05:
+        raise SystemExit("atlas round trip failed")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1631,6 +1965,35 @@ def main() -> int:
           "CPU")
     check_sensor_functions_card_vs_cpu()
 
+    phase("12. bench.py's official pass: the main path with yolov5s and "
+          "LightGlue 256x9, warm-up and three timed passes")
+    off = official_pass(caps, seq, kernels, W, H, f)
+    off["err1"], off["k1"] = check_window_match(
+        kernels, timed=True, args=off["wm_args"],
+        label="the official path's recorded call")
+    off["err2"], off["k2"] = check_lba(kernels, timed=True,
+                                       args=off["lba_args"])
+    la = off["launches"]
+    for k in (off["k1"], off["k2"]):
+        k["launch_floor_ms"] = floor_ms
+    off["k2"]["launches_per_solve"] = la["lba_landmark_blocks"] / \
+        max(la["lba_plan"], 1)
+    for name, k in (("window_match_topk2", off["k1"]),
+                    ("lba_landmark_blocks", off["k2"])):
+        print(f"{name} (official path): kernel {k['ms']:.4f} ms a call, "
+              f"{k['device_ms']:.4f} ms on the device "
+              f"({k['device_launches_recorded']} launches recorded), plain "
+              f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, "
+              f"bound {k['bound_ms']:.5f} ms ({k['bound_by']})", flush=True)
+    off_times = check_official_nets()
+    replay_costs(W, H)
+
+    phase("13. the RGB-D runner (python -m dani_slam_tpu_torch.examples."
+          "rgbd_tum --detector) on 30 frames written to disk; the atlas "
+          "saved and loaded on the card")
+    runner_pass(seq)
+    atlas_round_trip()
+
     kernels_out = [
         dict(name="window_match_topk2", route="cuda",
              source="dani_slam_tpu_torch/csrc/window_match.cu",
@@ -1673,6 +2036,29 @@ def main() -> int:
                  shape=f"{kind} path (recorded call): P {row_lm.shape[0]} x "
                  f"N {row_lm.shape[1]}, L {out['lba_args'][2]}",
                  **out["k2"])]
+    q, r = off["wm_args"][0], off["wm_args"][6]
+    row_lm = off["lba_args"][0]
+    kernels_out += [
+        dict(name="window_match_topk2", route="cuda",
+             source="dani_slam_tpu_torch/csrc/window_match.cu",
+             replaces="dani_slam_tpu/ops/pallas_kernels.py:168",
+             launches=la["window_match_topk2"], max_abs_err=off["err1"],
+             shape=f"official path (recorded call): M {q.shape[0]} x N "
+             f"{off['wm_args'][3].shape[0]} x D {q.shape[1]}, "
+             f"{int(off['wm_args'][2].sum())} live rows, radii "
+             f"{float(r.min()):.1f}-{float(r.max()):.1f} px", **off["k1"]),
+        dict(name="lba_landmark_blocks", route="cuda",
+             source="dani_slam_tpu_torch/csrc/lba_blocks.cu",
+             replaces="dani_slam_tpu/ops/pallas_kernels.py:265",
+             launches=la["lba_landmark_blocks"], max_abs_err=off["err2"],
+             shape=f"official path (recorded call): P {row_lm.shape[0]} x N "
+             f"{row_lm.shape[1]}, L {off['lba_args'][2]}", **off["k2"])]
+    print(f"official pass: {[round(x, 2) for x in off['fps']]} FPS, "
+          f"{off['n_kf']} keyframes, {off['n_lm']} landmarks, ATE "
+          f"{off['ate']:.4f} m; eager official match_pairs "
+          f"{off_times['1x1024']:.3f} ms (1 x 1024^2), "
+          f"{off_times['5x512']:.3f} ms (5 x 512^2), yolov5s "
+          f"{off_times['yolov5s_384x512']:.3f} ms", flush=True)
     print(f"loop pass: median {lp['median_ms']:.2f} ms/keyframe, max "
           f"{lp['max_ms']:.2f} ms; relocalization: {rl['calls']} attempts, "
           f"{rl['launches']} window-match launches; mono "

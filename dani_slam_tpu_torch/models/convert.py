@@ -26,6 +26,23 @@ def load_params(path: str) -> dict:
     return out
 
 
+def read_torch_checkpoint(path: str) -> dict:
+    """A public checkpoint file's state dict: a TorchScript archive (as the
+    reference loads its models), an ultralytics checkpoint ({'model':
+    module}), a pickled module, a {'state_dict': ...} wrapper or a plain
+    state dict. Only files the user names are read."""
+    try:
+        return torch.jit.load(path, map_location="cpu").state_dict()
+    except RuntimeError:                 # not a TorchScript archive
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "model" in obj:
+        obj = obj["model"]
+    sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return sd
+
+
 def hwio_to_oihw(kernel) -> torch.Tensor:
     """Flax conv kernel (kh, kw, in, out) -> torch (out, in, kh, kw)."""
     return torch.from_numpy(np.ascontiguousarray(
@@ -75,6 +92,14 @@ def load_dense(lin: nn.Linear, tree: dict):
         lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(
             np.asarray(tree["kernel"], np.float32).T)))
         lin.bias.copy_(torch.from_numpy(np.asarray(tree["bias"], np.float32)))
+
+
+def load_layernorm(ln: nn.LayerNorm, tree: dict):
+    """Copy a Flax LayerNorm's {'scale', 'bias'} into an nn.LayerNorm."""
+    with torch.no_grad():
+        ln.weight.copy_(torch.from_numpy(np.asarray(tree["scale"],
+                                                    np.float32)))
+        ln.bias.copy_(torch.from_numpy(np.asarray(tree["bias"], np.float32)))
 
 
 def lightglue_from_flax(model, params: dict):

@@ -89,3 +89,18 @@ def apply(model: SuperPoint, gray: torch.Tensor):
     with torch.no_grad():
         heat, desc = model(gray[None, None])
     return heat[0], desc[0]
+
+
+def load_magicleap_pt(path: str, device="cuda") -> SuperPoint:
+    """A public SuperPoint checkpoint (MagicLeap layout: a state dict, or a
+    module holding one, with conv1a.weight [out,in,kh,kw] ... convDb.bias)
+    -> SuperPoint on `device`; the layer names are this module's own."""
+    device = resolve_device(device)
+    sd = torch.load(path, map_location="cpu")
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    model = SuperPoint()
+    model.load_state_dict({f"{name}.{p}": sd[f"{name}.{p}"]
+                           for name, *_ in _LAYERS
+                           for p in ("weight", "bias")})
+    return model.to(device).eval().requires_grad_(False)

@@ -23,10 +23,10 @@ from __future__ import annotations
 import enum
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dani_slam_tpu_torch.core import cameras as _cam
-from dani_slam_tpu_torch.core import lie
 from dani_slam_tpu_torch.core import state as mstate
 from dani_slam_tpu_torch.models import vocab
 from dani_slam_tpu_torch.slam import loopclosing as lc
@@ -476,16 +476,54 @@ class System:
         self.tracker.pending_kf = None   # drop any stale pending keyframe
 
     def save_trajectory_tum(self, path: str):
-        """TUM format: time tx ty tz qx qy qz qw of T_wc."""
-        rows = []
-        for (tm, R_cw, t_cw) in self.tracker.trajectory:
-            R_wc = R_cw.T
-            C = -R_wc @ t_cw
-            q = lie.mat_to_quat(torch.as_tensor(R_wc)).numpy()
-            rows.append(f"{tm:.6f} {C[0]:.7f} {C[1]:.7f} {C[2]:.7f} "
-                        f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}")
-        with open(path, "w") as f:
-            f.write("\n".join(rows) + "\n")
+        """TUM format: time tx ty tz qx qy qz qw of T_wc, every tracked
+        frame."""
+        from dani_slam_tpu_torch.utils import io as io_utils
+        io_utils.save_trajectory_tum(path, self.tracker.trajectory)
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """Keyframe poses only, in time order, TUM format (reference:
+        SaveKeyFrameTrajectoryTUM src/System.cc:639)."""
+        from dani_slam_tpu_torch.utils import io as io_utils
+        st = self.tracker.st
+        mask, times, R, t = (pull(x) for x in (st.kf_mask, st.kf_time,
+                                               st.kf_R, st.kf_t))
+        ids = np.nonzero(mask)[0]
+        order = ids[np.argsort(times[ids], kind="stable")]
+        io_utils.save_trajectory_tum(
+            path, [(float(times[k]), R[k], t[k]) for k in order])
+
+    def save_atlas(self, path: str):
+        """Write the active map and the place-recognition database, with the
+        codebook's checksum (reference: System::SaveAtlas
+        src/System.cc:1413)."""
+        from dani_slam_tpu_torch.utils import checkpoint
+        lcl = self.loop_closer
+        checkpoint.save_map(path, self.tracker.st,
+                            codebook=lcl.codebook if lcl else None,
+                            bow=lcl.bow if lcl else None)
+
+    def load_atlas(self, path: str):
+        """Load a map saved by save_atlas (or by the JAX package's), checking
+        the codebook checksum (reference: LoadAtlas and its vocabulary
+        gate, src/System.cc:1455-1516); tracking resumes through
+        relocalization against it."""
+        from dani_slam_tpu_torch.utils import checkpoint
+        lcl = self.loop_closer
+        st, extras = checkpoint.load_map(
+            path, expect_codebook=lcl.codebook if lcl else None,
+            device=self.device)
+        if st.caps != self.caps:
+            raise ValueError(f"map capacities {tuple(st.caps)} differ from "
+                             f"this System's {tuple(self.caps)}")
+        tr = self.tracker
+        tr.st = st
+        if lcl is not None and "bow" in extras:
+            lcl.bow = extras["bow"]
+        tr.state = tracking.RECENTLY_LOST
+        tr.frames_lost = 1
+        tr.last_bind = torch.full((self.caps.N,), -1, dtype=torch.int32,
+                                  device=self.device)
 
     def _sp(self):
         if self.sp_params is None:

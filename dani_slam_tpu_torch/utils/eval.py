@@ -5,6 +5,18 @@ from __future__ import annotations
 import numpy as np
 
 
+def associate(t_est: np.ndarray, t_gt: np.ndarray, max_dt: float = 0.02):
+    """Greedy nearest-timestamp association (reference:
+    evaluation/associate.py). Returns (idx_est, idx_gt)."""
+    ie, ig = [], []
+    for i, te in enumerate(t_est):
+        j = int(np.argmin(np.abs(t_gt - te)))
+        if abs(t_gt[j] - te) <= max_dt:
+            ie.append(i)
+            ig.append(j)
+    return np.asarray(ie, int), np.asarray(ig, int)
+
+
 def align_horn(P: np.ndarray, Q: np.ndarray, with_scale: bool = False):
     """(s, R, t) minimizing ||Q - (s R P + t)|| for [N,3] point sets."""
     mu_p, mu_q = P.mean(0), Q.mean(0)

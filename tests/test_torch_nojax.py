@@ -2,8 +2,12 @@
 chip_smoke.py) imports with `jax` and `dani_slam_tpu` blocked, and its entry
 points (System for the monocular, stereo and RGB-D sensors, with loop
 closing and relocalization on by default, the vocabulary, the LoopCloser,
-the KB8 camera) default to CUDA and raise on a host without it instead of
-running on the CPU; the inertial sensors raise NotImplementedError.
+the KB8 camera, the official-scale nets and their checkpoint loaders, the
+settings' cameras, map loading, and the dataset runners) default to CUDA
+and raise on a host without it instead of running on the CPU; the inertial
+sensors raise NotImplementedError. The official nets and the runners also
+run there with `jax` blocked: one forward of each net on the CPU, and the
+runners' --help.
 
 This runs in a subprocess because tests/conftest.py imports JAX into the
 test process itself.
@@ -27,8 +31,13 @@ for m in mods:
 import torch
 from dani_slam_tpu_torch.core import cameras, state
 from dani_slam_tpu_torch.models import lightglue, superpoint, vocab, yolo
+from dani_slam_tpu_torch.models import lightglue_official, yolo_official
+from dani_slam_tpu_torch.core import config
+from dani_slam_tpu_torch.examples import (evaluate_ate, mono_tum, rgbd_tum,
+                                          stereo_kitti)
 from dani_slam_tpu_torch.slam import loopclosing
 from dani_slam_tpu_torch.slam.system import Sensor, System
+from dani_slam_tpu_torch.utils import checkpoint
 cam = cameras.Camera.pinhole(300.0, 300.0, 160.0, 120.0, 320, 240,
                              device="cpu")
 default_raises = {}
@@ -56,7 +65,26 @@ for name, fn in (("System", lambda: System(cam)),
                  ("LoopCloser",
                   lambda: loopclosing.LoopCloser(
                       cameras.Camera.pinhole(1, 1, 1, 1, 2, 2),
-                      state.MapCaps()))):
+                      state.MapCaps())),
+                 ("lightglue_official.load_official_matcher",
+                  lambda: lightglue_official.load_official_matcher()),
+                 ("yolo_official.load_official_detector",
+                  lambda: yolo_official.load_official_detector()),
+                 ("lightglue_official.load_lightglue_pt",
+                  lambda: lightglue_official.load_lightglue_pt("x.pt")),
+                 ("yolo_official.load_yolov5_pt",
+                  lambda: yolo_official.load_yolov5_pt("x.pt")),
+                 ("superpoint.load_magicleap_pt",
+                  lambda: superpoint.load_magicleap_pt("x.pth")),
+                 ("Settings.camera",
+                  lambda: config.Settings.from_yaml("").camera()),
+                 ("checkpoint.load_map",
+                  lambda: checkpoint.load_map("x.npz")),
+                 ("rgbd_tum.main",
+                  lambda: rgbd_tum.main(["s.yaml", "seq", "assoc.txt"])),
+                 ("mono_tum.main", lambda: mono_tum.main(["s.yaml", "seq"])),
+                 ("stereo_kitti.main",
+                  lambda: stereo_kitti.main(["s.yaml", "seq"]))):
     try:
         fn()
         default_raises[name] = False
@@ -73,6 +101,24 @@ loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                        "dani_slam_tpu")
                 and sys.modules[k] is not None)
+# the official nets run with jax blocked (CPU, tiny inputs)
+lg = lightglue_official.load_official_matcher(device="cpu")
+xy = torch.zeros(1, 8, 2)
+d = torch.nn.functional.normalize(torch.randn(1, 8, 256), dim=-1)
+m = torch.ones(1, 8, dtype=torch.bool)
+ran = {"lightglue_official": tuple(lightglue.match_pairs(
+    lg.model, xy, d, m, xy, d, m, 640, 480)[0].shape) == (1, 8)}
+det = yolo_official.load_official_detector(device="cpu")
+ran["yolo_official"] = len(det.model(torch.zeros(64, 64, 3))) == 3
+import contextlib, io
+helps = {}
+for mod in (rgbd_tum, mono_tum, stereo_kitti, evaluate_ate):
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            mod.main(["--help"])
+    except SystemExit as e:
+        helps[mod.__name__] = e.code == 0 and "usage" in buf.getvalue()
 import inspect
 sig = inspect.signature(System).parameters
 defaults_on = (sig["enable_loop_closing"].default is True and
@@ -80,7 +126,7 @@ defaults_on = (sig["enable_loop_closing"].default is True and
 print(json.dumps({"n": len(mods), "loaded": loaded, "defaults_on": defaults_on,
                   "cuda": torch.cuda.is_available(),
                   "default_raises": default_raises,
-                  "imu_raises": imu_raises}))
+                  "imu_raises": imu_raises, "ran": ran, "helps": helps}))
 """
 
 
@@ -102,7 +148,11 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
                 "slam.framegraph", "slam.loopclosing", "ops.pnp",
                 "ops.sim3", "ops.posegraph", "ops.ba_large",
                 "utils.checkpoint", "ops.twoview", "ops.rectify",
-                "ops.stats"):
+                "ops.stats", "models.lightglue_official",
+                "models.yolo_official", "core.config", "utils.io",
+                "utils.native", "utils.timing", "examples.rgbd_tum",
+                "examples.mono_tum", "examples.stereo_kitti",
+                "examples.evaluate_ate"):
         assert f"{PKG}.{new}" in mods
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -115,5 +165,8 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
     assert out["loaded"] == []
     assert out["defaults_on"]
     assert all(out["imu_raises"].values()), out["imu_raises"]
+    assert out["ran"] == {"lightglue_official": True, "yolo_official": True}
+    assert len(out["helps"]) == 4 and all(out["helps"].values()), \
+        out["helps"]
     if not out["cuda"]:        # with a card the default device is usable
         assert all(out["default_raises"].values()), out["default_raises"]
