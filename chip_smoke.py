@@ -62,10 +62,14 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
   9. the monocular entry point, examples/mono_tum.py's configuration
      (System(MONOCULAR, pipelined=True, n_levels=8, scale_factor=1.2),
      LightGlue, loop closing and relocalization on, MapCaps()) on the
-     bench's 60 images: a warm-up pass (recording both kernels' arguments,
-     and counting the synchronizing calls torch's sync debug mode flags),
-     then a timed pass on a fresh System with every counter set to 0 just
-     before it and read just after: init frame, tracked frames, keyframes,
+     bench's 60 images: a warm-up pass (capturing the track step's graphs,
+     recording kernel 2's arguments, and counting the synchronizing calls
+     torch's sync debug mode flags), a pass over the first 12 frames with
+     the track step eager (recording kernel 1's tracking calls, which the
+     graphed passes run inside the graph; the held one has the most live
+     query rows, at least MIN_HELD_LIVE), then a timed pass on a fresh
+     System with every counter set to 0 just before it and read just
+     after: init frame, tracked frames, keyframes,
      landmarks, Sim3-aligned ATE, FPS, syncs and asynchronous reads per
      frame, launches, the keyframes' octave histogram; checked against the
      JAX package's numbers on the CPU (JAX_TARGETS, margins in PERF.md);
@@ -97,7 +101,29 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
      --detector` in a subprocess on the default device (cuda): a trajectory
      row per pose, at the sequence's timestamps, the log naming cuda; then
      save_atlas / load_atlas on the card and a frame tracked against the
-     loaded map.
+     loaded map;
+ 14. the IMU_RGBD sensor: the bench's 640x480 detector-on RGB-D images
+     played at 10 Hz along its orbit, 400 Hz IMU windows made from the
+     analytic orbit (numpy; 40 samples a frame), System(IMU_RGBD,
+     detector=<compact YOLO>, matcher="auto", pipelined=True) with loop
+     closing and relocalization on at MapCaps(): a warm-up pass over all
+     60 frames as the timed pass runs them (capturing the graphs, recording
+     kernel 2's arguments on a local BA before the IMU initialization,
+     counting the synchronizing calls torch's sync debug mode flags in
+     every frame), a pass over the first 20 frames with the track step
+     eager (through the IMU initialization; recording kernel 1's tracking
+     calls after it, held as in phase 9), then a timed pass over all 60
+     frames on a fresh System (every feature-path track step a graph
+     replay) with every counter set to 0 just before it and read just after:
+     IMU init frame, tracked frames, keyframes, landmarks, rigid ATE (the
+     initialization rotates the world to gravity), |bias_g|, |bias_a|, the
+     stages reached (init, VIBA1, VIBA2), local and full inertial BA calls,
+     launches, FPS, syncs; held to bench.py's counts and the JAX package's
+     numbers (INERTIAL_TARGETS), both kernels held against their plain
+     versions on the recorded calls;
+ 15. the IMU_STEREO sensor, examples/stereo_inertial_euroc.py's
+     System(IMU_STEREO, pipelined=True) on phase 10's rectified pair at
+     10 Hz with the same IMU windows, as phase 14.
 
 The line before the last is {"kernels": [...]} with each kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without CUDA, or run outside
@@ -148,7 +174,7 @@ def device_ms(fn, names, reps: int = 20, per_session: int = 5):
     over short sessions of `per_session` calls after warm-up (late in a
     long run one long session kept only a third to a half of its records),
     the mean over the launches recorded, until each name has `reps` of
-    them or `reps` * 3 calls were made. Returns (ms by name, launches
+    them or `reps` * 10 calls were made. Returns (ms by name, launches
     recorded by name); fails when a name has fewer than `reps` // 2, so a
     host-side number can never stand in for a device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -157,7 +183,9 @@ def device_ms(fn, names, reps: int = 20, per_session: int = 5):
     _sync()
     total = {n: 0.0 for n in names}
     count = {n: 0 for n in names}
-    for _session in range(3 * reps // per_session):
+    # a session late in a long run may keep few of its records: up to ten
+    # times the calls are made before giving up
+    for _session in range(10 * reps // per_session):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(per_session):
@@ -175,7 +203,7 @@ def device_ms(fn, names, reps: int = 20, per_session: int = 5):
     if all(count[n] >= reps // 2 and total[n] > 0 for n in names):
         return {n: total[n] / 1e3 / count[n] for n in names}, count
     raise SystemExit(f"profiler recorded too few device times: {count} "
-                     f"launches of {3 * reps} calls")
+                     f"launches of {10 * reps} calls")
 
 
 def phase(name: str):
@@ -983,6 +1011,11 @@ JAX_TARGETS = {"mono": dict(init=4, tracked=56, kf=12, lm=733, ate=0.1054,
                "stereo": dict(init=0, tracked=60, kf=19, lm=2216,
                               ate=0.1346, ate_spread=(0.0999, 0.1617))}
 STEREO_BASELINE = 0.12
+# the least number of live query rows of the tracking call of kernel 1 that
+# a pass holds against its plain version (a tracked frame with the map in
+# view: 430 / 508 in the mono / stereo recording passes on an H100, 631 /
+# 1958 at the end of a full pass)
+MIN_HELD_LIVE = 300
 
 
 def sync_sites(caught):
@@ -1011,6 +1044,7 @@ def counted_sync_sites() -> dict:
             "async": line(devmod.AsyncRead.get, ".synchronize()"),
             "const": line(devmod._const.__wrapped__, "torch.tensor("),
             "svd": line(linalg.svd, "torch.linalg.svd("),
+            "eigh": line(linalg.eigh, "torch.linalg.eigh("),
             "svdvals": line(linalg.svdvals, "torch.linalg.svdvals(")}
 
 
@@ -1018,8 +1052,8 @@ def uncounted_waits(sites, syncs, svds, waited) -> dict:
     """Checks the flagged host waits of a run against the counted ones:
     every flag inside the port at a counted line (`hidden` lists the
     others), and the flags at those lines exactly the counted waits, an SVD
-    flagged twice (`balance`: flagged, expected; an AsyncRead that waits
-    may or may not be flagged)."""
+    flagged twice, a symmetric eigendecomposition once (`flagged`,
+    `expected`; an AsyncRead that waits may or may not be flagged)."""
     counted = counted_sync_sites()
     lines = set(counted.values())
     hidden = {k: v for k, v in sites.items()
@@ -1032,15 +1066,35 @@ def uncounted_waits(sites, syncs, svds, waited) -> dict:
 
 
 class ArgRecorder:
-    """Keeps clones of the arguments of the last call of a kernel wrapper
-    while installed on the kernels module, the attribute its callers look
-    up. Every call passes through unchanged; the launches made meanwhile
-    are counted on the recorder (the wrapper's counter is not touched), so
-    it is installed only around a warm-up pass."""
+    """Keeps clones of the arguments of the last `history` calls of a
+    kernel wrapper that `keep` accepts while installed on the kernels
+    module, the attribute its callers look up (`args`: the last one;
+    `best(score)`: the one scoring highest). Every call passes through
+    unchanged; the launches made meanwhile are counted on the recorder (the
+    wrapper's counter is not touched), so it is installed only around a
+    warm-up pass."""
 
-    def __init__(self, kernels, name, keep=lambda args: True):
-        self.kernels, self.name, self.keep, self.args = kernels, name, keep, \
-            None
+    def __init__(self, kernels, name, keep=lambda args: True, history=1):
+        import collections
+        self.kernels, self.name, self.keep = kernels, name, keep
+        self.calls = collections.deque(maxlen=history)
+
+    @property
+    def args(self):
+        return self.calls[-1] if self.calls else None
+
+    def best(self, score):
+        return max(self.calls, key=score) if self.calls else None
+
+    def held(self, least):
+        """The call with the most live query rows (kernel 1's argument 2),
+        which must have at least `least`."""
+        args = self.best(lambda a: int(a[2].sum()))
+        live = 0 if args is None else int(args[2].sum())
+        if live < least:
+            raise SystemExit(f"{self.name}: the recorded calls have at most "
+                             f"{live} live query rows, fewer than {least}")
+        return args
 
     def __enter__(self):
         import functools
@@ -1049,9 +1103,11 @@ class ArgRecorder:
 
         @functools.wraps(orig)
         def record(*a):
-            if self.keep(a):
-                self.args = tuple(x.clone() if isinstance(x, torch.Tensor)
-                                  else x for x in a)
+            # a call inside a graph capture holds the graph's buffers, not
+            # a frame's values
+            if not torch.cuda.is_current_stream_capturing() and self.keep(a):
+                self.calls.append(tuple(x.clone() if isinstance(
+                    x, torch.Tensor) else x for x in a))
             return orig(*a)
         setattr(self.kernels, self.name, record)
         return self
@@ -1077,13 +1133,17 @@ def sensor_sequence(kind, n_frames, width, height, f):
     return R_gt, t_gt, left, right, times
 
 
-def run_sensor(kind, caps, seq, width, height, f, sync_debug=False):
+def run_sensor(kind, caps, seq, width, height, f, sync_debug=False,
+               n_frames=None, frame_graph=True):
     """One pass of examples/mono_tum.py's System(MONOCULAR, pipelined=True,
     n_levels=8, scale_factor=1.2) or examples/stereo_kitti.py's
     System(STEREO, pipelined=True) on a fresh System (loop closing and
-    relocalization on, LightGlue, 1024 features). sync_debug: torch's sync
-    debug mode warns at every synchronizing call of the frames (not of the
-    set-up). Returns (system, per-frame states, seconds)."""
+    relocalization on, LightGlue, 1024 features) over the first n_frames
+    frames (all when None). sync_debug: torch's sync debug mode warns at
+    every synchronizing call of the frames (not of the set-up);
+    frame_graph=False runs the track step eagerly (its kernel calls then
+    pass through the wrappers, where they can be recorded). Returns
+    (system, per-frame states, seconds)."""
     import torch
     from dani_slam_tpu_torch.core import cameras
     from dani_slam_tpu_torch.slam.system import Sensor, System
@@ -1093,10 +1153,11 @@ def run_sensor(kind, caps, seq, width, height, f, sync_debug=False):
     sys_ = System(cam, Sensor.MONOCULAR if kind == "mono" else Sensor.STEREO,
                   caps=caps, n_features=1024, pipelined=True, device="cuda",
                   **extra)
+    sys_.tracker.frame_graph = frame_graph
     _, _, left, right, times = seq
-    left = [torch.as_tensor(x, device="cuda") for x in left]
+    left = [torch.as_tensor(x, device="cuda") for x in left[:n_frames]]
     right = None if right is None else [torch.as_tensor(x, device="cuda")
-                                        for x in right]
+                                        for x in right[:n_frames]]
     _sync()
     if sync_debug:
         torch.cuda.set_sync_debug_mode("warn")
@@ -1117,11 +1178,14 @@ def run_sensor(kind, caps, seq, width, height, f, sync_debug=False):
     return sys_, states, time.perf_counter() - t0
 
 
-def sensor_pass(kind, caps, kernels):
-    """A warm-up pass (which also records the kernels' arguments and counts
-    the synchronizing calls torch's sync debug mode flags) and a timed pass
-    on fresh Systems, counters set to 0 just before the timed pass and read
-    just after; checks against the JAX package's numbers."""
+def sensor_pass(kind, caps, kernels, n_record=12):
+    """A warm-up pass (which captures the track step's graphs, records
+    kernel 2's arguments and counts the synchronizing calls torch's sync
+    debug mode flags), a pass over the first n_record frames with the track
+    step eager (which records kernel 1's tracking calls: in the graphed
+    passes they run inside the graph) and a timed pass, on fresh Systems,
+    counters set to 0 just before the timed pass and read just after;
+    checks against the JAX package's numbers."""
     import warnings
     import numpy as np
     import torch
@@ -1131,11 +1195,8 @@ def sensor_pass(kind, caps, kernels):
     W, H, f, n = 640, 480, 500.0, 60
     seq = sensor_sequence(kind, n, W, H, f)
     devmod.SYNCS.count = devmod.SYNCS.svd = devmod.ASYNC.waited = 0
-    # kernel 1's tracking calls (per-query radii; a relocalization passes a
-    # scalar) and kernel 2's last call
-    with ArgRecorder(kernels, "window_match_topk2",
-                     keep=lambda a: isinstance(a[6], torch.Tensor)) as wm, \
-            ArgRecorder(kernels, "lba_landmark_blocks") as lb, \
+    # kernel 2's last call
+    with ArgRecorder(kernels, "lba_landmark_blocks") as lb, \
             warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         _, states_w, dt_w = run_sensor(kind, caps, seq, W, H, f,
@@ -1151,6 +1212,17 @@ def sensor_pass(kind, caps, kernels):
           f"waits); flags at the counted lines {waits['flagged']}, expected "
           f"{waits['expected']} (an SVD flagged twice); by call site: "
           f"{sites.most_common(12)}", flush=True)
+    # kernel 1's tracking calls (per-query radii; a relocalization passes a
+    # scalar); the held one is that with the most live query rows
+    with ArgRecorder(kernels, "window_match_topk2", history=n_record,
+                     keep=lambda a: isinstance(a[6], torch.Tensor)) as wm:
+        _, states_r, dt_r = run_sensor(kind, caps, seq, W, H, f,
+                                       n_frames=n_record, frame_graph=False)
+    wm_args = wm.held(MIN_HELD_LIVE)
+    print(f"recording pass (track step eager): {states_r.count('OK')}/"
+          f"{n_record} tracked in {dt_r:.2f} s, {len(wm.calls)} tracking "
+          f"calls of window_match_topk2 recorded, the held one with "
+          f"{int(wm_args[2].sum())} live query rows", flush=True)
     kernels.reset_launch_counts()
     lightglue.FORWARDS.count = 0
     devmod.SYNCS.count = devmod.ASYNC.ready = devmod.ASYNC.waited = 0
@@ -1214,9 +1286,279 @@ def sensor_pass(kind, caps, kernels):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"{kind} pass checks failed: {failed}")
-    return dict(launches=launches, wm_args=wm.args,
+    return dict(launches=launches, wm_args=wm_args,
                 lba_args=lb.args[:3] if lb.args else None, fps=n / dt,
                 ate=ate)
+
+
+# ---------------------------------------------------------------------------
+# Phases 14-15: the inertial sensors (IMU_RGBD, IMU_STEREO)
+# ---------------------------------------------------------------------------
+
+# The JAX package's runs of the same configurations on the same images and
+# IMU windows on the CPU (`python tests/test_torch_inertial_system.py jax
+# rgbd-full` and `... stereo-full`) and on its frames with every keypoint
+# moved by N(0, 1e-3) px (`... spread rgbd-full 1 2 3`): a full-size
+# inertial run is chaotic in the JAX package (RGB-D: 6-10 keyframes,
+# 1283-1824 landmarks, ATE 0.119-0.305 m over seeds 0-3; deferred decisions
+# that find a frame lost roll the map back), so the port is held to that
+# range: init frame within 2 of the JAX runs' (the same in all of them),
+# tracked >= 51 and at most 3 below, keyframes within a factor of 2 of the
+# range, landmarks within 40 % of it, rigid ATE at most 0.10 m above its
+# largest.
+INERTIAL_TARGETS = {"rgbd": dict(init=13, tracked=60, kf=(6, 10),
+                                 lm=(1283, 1824), ate=0.3054,
+                                 ate_spread=(0.1189, 0.3054)),
+                    "stereo": dict(init=17, tracked=60, kf=(7, 22),
+                                   lm=(1117, 2226), ate=0.2177,
+                                   ate_spread=(0.2177, 0.2545))}
+IMU_FPS, IMU_RATE, GRAVITY = 10.0, 400.0, (0.0, 0.0, -9.81)
+
+
+def orbit_imu_windows(n_frames, span, radius=10.0):
+    """Host IMU samples between consecutive frames of
+    synthetic.orbit_trajectory(n_frames, radius, span) played at IMU_FPS
+    (the camera at angle omega t, omega = span * IMU_FPS / (n_frames - 1)),
+    at IMU_RATE: the gyroscope from the finite rotation between samples,
+    the accelerometer the specific force R_wb^T (a - g), body == camera
+    (the rule of tests/test_mono_inertial.py). [None, (gyro, acc, dts),
+    ...], 40 samples a window."""
+    import numpy as np
+    omega = span * IMU_FPS / (n_frames - 1)
+
+    def pose(t):
+        ang = omega * t
+        C = np.array([radius * np.sin(ang), 0.0, -radius * np.cos(ang)])
+        z = -C / np.linalg.norm(C)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        return np.stack([x, np.cross(z, x), z], 1), \
+            -omega ** 2 * np.array([C[0], 0.0, C[2]])
+
+    def rotvec(R):
+        ang = np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0))
+        w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                      R[1, 0] - R[0, 1]])
+        return w * (0.5 if ang < 1e-8 else ang / (2.0 * np.sin(ang)))
+
+    out = [None]
+    for i in range(1, n_frames):
+        t0, t1 = (i - 1) / IMU_FPS, i / IMU_FPS
+        n = int(round((t1 - t0) * IMU_RATE))
+        ts = np.linspace(t0, t1, n + 1)
+        gyro, acc = [], []
+        for k in range(n):
+            R0, a0 = pose(ts[k])
+            R1, _ = pose(ts[k + 1])
+            gyro.append(rotvec(R0.T @ R1) / (ts[k + 1] - ts[k]))
+            acc.append(R0.T @ (a0 - np.asarray(GRAVITY)))
+        out.append((np.asarray(gyro, np.float32),
+                    np.asarray(acc, np.float32),
+                    np.diff(ts).astype(np.float32)))
+    return out
+
+
+def inertial_sequence(kind, n_frames, width, height, f):
+    """(R_gt, t_gt, left images, depths or right images, times) at
+    IMU_FPS along the bench's orbit: the bench's RGB-D images, or phase
+    10's rectified pair."""
+    from dani_slam_tpu_torch.utils import synthetic
+    R_gt, t_gt = synthetic.orbit_trajectory(n_frames, radius=10.0,
+                                            angle_span=0.35)
+    params = [f, f, width / 2, height / 2]
+    if kind == "rgbd":
+        imgs, deps, times = synthetic.make_rgbd_image_sequence(
+            params, width, height, R_gt, t_gt, seed=0, fps=IMU_FPS)
+        return R_gt, t_gt, imgs, [d.astype("int32") for d in deps], times
+    left, right, times = synthetic.make_stereo_image_sequence(
+        params, width, height, R_gt, t_gt, baseline=STEREO_BASELINE, seed=0,
+        fps=IMU_FPS)
+    return R_gt, t_gt, left, right, times
+
+
+def run_inertial(kind, caps, seq, host_windows, width, height, f,
+                 sync_debug=False, progress=None, n_frames=None,
+                 frame_graph=True):
+    """One pass of System(IMU_RGBD, detector=<compact YOLO>, matcher=
+    "auto", pipelined=True) or examples/stereo_inertial_euroc.py's
+    System(IMU_STEREO, pipelined=True) on a fresh System (loop closing and
+    relocalization on, 1024 features, the default IMU calibration), every
+    frame with the IMU window since the previous one (made and copied to
+    the card before the pass), over the first n_frames frames (all when
+    None). progress(system) runs after each frame; frame_graph=False runs
+    the track step eagerly (its kernel calls then pass through the
+    wrappers, where they can be recorded). Returns (system, states, IMU
+    init frame, seconds)."""
+    import torch
+    from dani_slam_tpu_torch.core import cameras
+    from dani_slam_tpu_torch.models import yolo
+    from dani_slam_tpu_torch.slam.inertial import make_window
+    from dani_slam_tpu_torch.slam.system import Sensor, System
+    cam = cameras.Camera.pinhole(f, f, width / 2, height / 2, width, height,
+                                 device="cuda")
+    if kind == "rgbd":
+        sys_ = System(cam, Sensor.IMU_RGBD, caps=caps, n_features=1024,
+                      detector=yolo.load_default_detector("cuda"),
+                      matcher="auto", pipelined=True, device="cuda")
+    else:
+        sys_ = System(cam, Sensor.IMU_STEREO, caps=caps, n_features=1024,
+                      pipelined=True, device="cuda")
+    sys_.tracker.frame_graph = frame_graph
+    _, _, a, b, times = seq
+    n = n_frames or len(a)
+    a = [torch.as_tensor(x, device="cuda") for x in a[:n]]
+    b = [torch.as_tensor(x, device="cuda") for x in b[:n]]
+    wins = [None if w is None else make_window(*w, device="cuda")
+            for w in host_windows[:n]]
+    _sync()
+    if sync_debug:
+        torch.cuda.set_sync_debug_mode("warn")
+    t0 = time.perf_counter()
+    states, init = [], None
+    try:
+        for i in range(len(a)):
+            if kind == "rgbd":
+                out = sys_.track_rgbd(a[i], b[i], times[i],
+                                      imu_window=wins[i])
+            else:
+                out = sys_.track_stereo(a[i], b[i], times[i],
+                                        STEREO_BASELINE, imu_window=wins[i])
+            states.append(out[0])
+            if init is None and sys_.tracker.inertial.initialized:
+                init = i
+            if progress is not None:
+                progress(sys_)
+        sys_.shutdown()
+        _sync()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sys_, states, init, time.perf_counter() - t0
+
+
+def inertial_pass(kind, caps, kernels, n_record=20):
+    """Phase 14 / 15: a warm-up pass over the whole sequence in the timed
+    configuration (it captures the graphs, records kernel 2's arguments on
+    a local BA before the IMU initialization, and counts the synchronizing
+    calls torch's sync debug mode flags in all its frames), a pass over the
+    first n_record frames with the track step eager (through the IMU
+    initialization: it records kernel 1's tracking calls after it, which
+    in the graphed passes run inside the graph) and a timed pass over the
+    whole sequence, on fresh Systems, counters set to 0 just before the
+    timed pass and read just after; checks against bench.py's counts and
+    the JAX package's numbers."""
+    import warnings
+    import numpy as np
+    import torch
+    from dani_slam_tpu_torch.utils import device as devmod
+    from dani_slam_tpu_torch.utils import eval as ev
+    W, H, f, n = 640, 480, 500.0, 60
+    seq = inertial_sequence(kind, n, W, H, f)
+    host_windows = orbit_imu_windows(n, 0.35)
+    flags = dict(imu=False)
+
+    def note(sys_):
+        flags["imu"] = bool(sys_.tracker.inertial.initialized)
+
+    devmod.SYNCS.count = devmod.SYNCS.svd = devmod.SYNCS.eigh = 0
+    devmod.ASYNC.waited = 0
+    with ArgRecorder(kernels, "lba_landmark_blocks",
+                     keep=lambda a: not flags["imu"]) as lb, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, states_w, init_w, dt_w = run_inertial(
+            kind, caps, seq, host_windows, W, H, f, sync_debug=True,
+            progress=note)
+    sites = sync_sites(caught)
+    waits = uncounted_waits(sites, devmod.SYNCS.count, devmod.SYNCS.svd,
+                            devmod.ASYNC.waited)
+    print(f"warm-up pass: {states_w.count('OK')}/{n} tracked, IMU init at "
+          f"frame {init_w}, {dt_w:.2f} s; synchronizing calls of its frames "
+          f"flagged by torch's sync debug mode: {sum(sites.values())}, "
+          f"blocking reads counted: {devmod.SYNCS.count} "
+          f"({devmod.SYNCS.svd} SVDs, {devmod.SYNCS.eigh} eigh, "
+          f"{devmod.ASYNC.waited} AsyncRead waits); flags at the counted "
+          f"lines {waits['flagged']}, expected {waits['expected']}; by call "
+          f"site: {sites.most_common(12)}", flush=True)
+    # kernel 1's tracking calls after the initialization (per-query radii;
+    # a relocalization passes a scalar); the held one is that with the
+    # most live query rows
+    flags["imu"] = False
+    with ArgRecorder(kernels, "window_match_topk2",
+                     keep=lambda a: isinstance(a[6], torch.Tensor) and
+                     flags["imu"], history=n_record) as wm:
+        _, states_r, init_r, dt_r = run_inertial(
+            kind, caps, seq, host_windows, W, H, f, progress=note,
+            n_frames=n_record, frame_graph=False)
+    wm_args = wm.held(MIN_HELD_LIVE)
+    print(f"recording pass (track step eager): {states_r.count('OK')}/"
+          f"{n_record} tracked, IMU init at frame {init_r}, {dt_r:.2f} s, "
+          f"{len(wm.calls)} tracking calls of window_match_topk2 after it "
+          f"recorded, the held one with {int(wm_args[2].sum())} live query "
+          f"rows", flush=True)
+    kernels.reset_launch_counts()
+    devmod.SYNCS.count = devmod.ASYNC.ready = devmod.ASYNC.waited = 0
+    sys_, states, init, dt = run_inertial(kind, caps, seq, host_windows, W,
+                                          H, f)
+    launches = kernels.launch_counts()
+    syncs, ready, waited = (devmod.SYNCS.count, devmod.ASYNC.ready,
+                            devmod.ASYNC.waited)
+    tr = sys_.tracker
+    st = sys_.map_state
+    n_kf, n_lm = sys_.n_keyframes(), sys_.n_landmarks()
+    traj = tr.trajectory
+    C = centers(traj)
+    idx = np.round(np.asarray([tm for tm, _, _ in traj]) *
+                   IMU_FPS).astype(int)
+    ate = ev.ate_rmse(C, ev.centers_from_tcw(seq[0][idx], seq[1][idx]),
+                      with_scale=False)
+    bg = float(torch.linalg.norm(tr.inertial.bias_g))
+    ba = float(torch.linalg.norm(tr.inertial.bias_a))
+    stage_flags = [bool(x) for x in (st.imu_initialized, st.imu_ba1,
+                                     st.imu_ba2)]
+    n_ok = states.count("OK")
+    dyn = float(tr.dynamic_ratio) if tr.dynamic_ratio is not None else 0.0
+    print(f"timed pass: IMU init at frame {init}, tracked {n_ok}/{n}, {n_kf} "
+          f"keyframes ({sys_._kf_count} keyframe steps), {n_lm} landmarks, "
+          f"ATE {ate:.4f} m (rigid), |bias_g| {bg:.5f} rad/s, |bias_a| "
+          f"{ba:.5f} m/s^2, stages (init, VIBA1, VIBA2) {stage_flags}, "
+          f"{sys_.local_inertial_bas} local inertial BAs, "
+          f"{sys_.full_inertial_bas} full inertial BAs, {n / dt:.2f} FPS "
+          f"({1e3 * dt / n:.1f} ms/frame), {syncs / n:.2f} blocking host "
+          f"syncs/frame, {(ready + waited) / n:.2f} asynchronous "
+          f"reads/frame of which {waited} of {ready + waited} had to wait, "
+          f"{tr.rollbacks} rollbacks ({len(traj)} frames kept in the "
+          f"trajectory), launches {launches}, last dyn_ratio {dyn:.3f}",
+          flush=True)
+    print("states " + "".join(s[0] for s in states), flush=True)
+    tgt = INERTIAL_TARGETS[kind]
+    checks = {
+        "IMU initialized": init is not None and stage_flags[0],
+        "init frame within 2 of the JAX run's": init is not None and
+        abs(init - tgt["init"]) <= 2,
+        "tracked >= 51 and >= JAX - 3": n_ok >= max(51, tgt["tracked"] - 3),
+        f"keyframes >= 5 and within a factor 2 of the JAX runs' "
+        f"{tgt['kf']}":
+        n_kf >= 5 and tgt["kf"][0] / 2 <= n_kf <= 2 * tgt["kf"][1],
+        f"landmarks >= 1000 and within 40 % of the JAX runs' {tgt['lm']}":
+        n_lm >= 1000 and 0.6 * tgt["lm"][0] <= n_lm <= 1.4 * tgt["lm"][1],
+        f"ATE <= {tgt['ate_spread'][1] + 0.10:.4f} m (JAX {tgt['ate']:.4f} "
+        f"m, {tgt['ate_spread'][0]:.4f}-{tgt['ate_spread'][1]:.4f} m on "
+        f"frames moved by 1e-3 px)": ate <= tgt["ate_spread"][1] + 0.10,
+        "poses finite": bool(np.all(np.isfinite(C))),
+        "a local inertial BA": sys_.local_inertial_bas >= 1,
+        "window_match_topk2 launched": launches["window_match_topk2"] > 0,
+        "lba_landmark_blocks launched": launches["lba_landmark_blocks"] > 0,
+        "lba_plan launched": launches["lba_plan"] > 0,
+        f"every host wait of the port counted {waits}": waits["ok"],
+    }
+    if kind == "rgbd":
+        checks["detector fired"] = dyn > 0.0
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"IMU {kind} pass checks failed: {failed}")
+    return dict(launches=launches, wm_args=wm_args,
+                lba_args=lb.args[:3] if lb.args else None, fps=n / dt,
+                ate=ate, init=init, n_kf=n_kf, n_lm=n_lm)
 
 
 # ---------------------------------------------------------------------------
@@ -1994,6 +2336,41 @@ def main() -> int:
     runner_pass(seq)
     atlas_round_trip()
 
+    inert = {}
+    for num, kind, what in (
+            (14, "rgbd", "System(IMU_RGBD, detector=<compact YOLO>, "
+             "matcher='auto', pipelined=True) on the bench's images"),
+            (15, "stereo", "examples/stereo_inertial_euroc.py's "
+             "System(IMU_STEREO, pipelined=True) on phase 10's rectified "
+             "pair")):
+        phase(f"{num}. IMU {kind} pass: {what}, 60 frames 640x480 at 10 Hz "
+              f"with 400 Hz IMU windows of the orbit, loop closing and "
+              f"relocalization on, MapCaps()")
+        out = inertial_pass(kind, caps, kernels)
+        if out["wm_args"] is None or out["lba_args"] is None:
+            raise SystemExit(f"IMU {kind} pass: a kernel was never called "
+                             f"(window match after the IMU initialization, "
+                             f"landmark blocks before it)")
+        out["err1"], out["k1"] = check_window_match(
+            kernels, timed=True, args=out["wm_args"],
+            label=f"the IMU {kind} path's recorded call")
+        out["err2"], out["k2"] = check_lba(kernels, timed=True,
+                                           args=out["lba_args"])
+        for k in (out["k1"], out["k2"]):
+            k["launch_floor_ms"] = floor_ms
+        out["k2"]["launches_per_solve"] = \
+            out["launches"]["lba_landmark_blocks"] / \
+            max(out["launches"]["lba_plan"], 1)
+        for name, k in (("window_match_topk2", out["k1"]),
+                        ("lba_landmark_blocks", out["k2"])):
+            print(f"{name} (IMU {kind} path): kernel {k['ms']:.4f} ms a call, "
+                  f"{k['device_ms']:.4f} ms on the device "
+                  f"({k['device_launches_recorded']} launches recorded), "
+                  f"plain {k['plain_ms']:.4f} ms, library "
+                  f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
+                  f"({k['bound_by']})", flush=True)
+        inert[kind] = out
+
     kernels_out = [
         dict(name="window_match_topk2", route="cuda",
              source="dani_slam_tpu_torch/csrc/window_match.cu",
@@ -2036,6 +2413,28 @@ def main() -> int:
                  shape=f"{kind} path (recorded call): P {row_lm.shape[0]} x "
                  f"N {row_lm.shape[1]}, L {out['lba_args'][2]}",
                  **out["k2"])]
+    for kind, out in inert.items():
+        q, r = out["wm_args"][0], out["wm_args"][6]
+        row_lm = out["lba_args"][0]
+        kernels_out += [
+            dict(name="window_match_topk2", route="cuda",
+                 source="dani_slam_tpu_torch/csrc/window_match.cu",
+                 replaces="dani_slam_tpu/ops/pallas_kernels.py:168",
+                 launches=out["launches"]["window_match_topk2"],
+                 max_abs_err=out["err1"],
+                 shape=f"IMU {kind} path (recorded call after the IMU "
+                 f"initialization): M {q.shape[0]} x N "
+                 f"{out['wm_args'][3].shape[0]} x D {q.shape[1]}, "
+                 f"{int(out['wm_args'][2].sum())} live rows, radii "
+                 f"{float(r.min()):.1f}-{float(r.max()):.1f} px", **out["k1"]),
+            dict(name="lba_landmark_blocks", route="cuda",
+                 source="dani_slam_tpu_torch/csrc/lba_blocks.cu",
+                 replaces="dani_slam_tpu/ops/pallas_kernels.py:265",
+                 launches=out["launches"]["lba_landmark_blocks"],
+                 max_abs_err=out["err2"],
+                 shape=f"IMU {kind} path (a local BA before the IMU "
+                 f"initialization): P {row_lm.shape[0]} x N "
+                 f"{row_lm.shape[1]}, L {out['lba_args'][2]}", **out["k2"])]
     q, r = off["wm_args"][0], off["wm_args"][6]
     row_lm = off["lba_args"][0]
     kernels_out += [
@@ -2064,7 +2463,12 @@ def main() -> int:
           f"{rl['launches']} window-match launches; mono "
           f"{sensor['mono']['fps']:.2f} FPS, ATE {sensor['mono']['ate']:.4f} "
           f"m; stereo {sensor['stereo']['fps']:.2f} FPS, ATE "
-          f"{sensor['stereo']['ate']:.4f} m", flush=True)
+          f"{sensor['stereo']['ate']:.4f} m; IMU RGB-D "
+          f"{inert['rgbd']['fps']:.2f} FPS, init at frame "
+          f"{inert['rgbd']['init']}, ATE {inert['rgbd']['ate']:.4f} m; IMU "
+          f"stereo {inert['stereo']['fps']:.2f} FPS, init at frame "
+          f"{inert['stereo']['init']}, ATE {inert['stereo']['ate']:.4f} m",
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Lie-group operations on SO(3)/SE(3)/Sim(3) — the subset the RGB-D
-tracking, local-mapping and loop-closing paths use (counterpart of
+"""Lie-group operations on SO(3)/SE(3)/Sim(3) — the subset the tracking,
+mapping, loop-closing and inertial paths use (counterpart of
 dani_slam_tpu/core/lie.py).
 
 Conventions as in the reference package: rotations are 3x3 matrices, poses
@@ -69,6 +69,30 @@ def so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     return _eye_like(K) + b[..., None, None] * K + c[..., None, None] * (K @ K)
 
 
+def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian J_r(phi) = J_l(-phi) (IMU preintegration)."""
+    return so3_left_jacobian(-phi)
+
+
+def so3_left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SO(3)."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    small = theta2 < _EPS
+    half = 0.5 * theta
+    # 1/theta^2 - (1+cos)/(2 theta sin) == (1 - half*cot(half))/theta^2
+    cot_coef = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / torch.sin(half))
+        / torch.clamp(theta2, min=1e-24))
+    K = hat(phi)
+    return _eye_like(K) - 0.5 * K + cot_coef[..., None, None] * (K @ K)
+
+
+def so3_right_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    return so3_left_jacobian_inv(-phi)
+
+
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion (...,4) wxyz -> rotation matrix (...,3,3)."""
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
@@ -126,6 +150,13 @@ def se3_exp(xi: torch.Tensor):
     R = so3_exp(phi)
     V = so3_left_jacobian(phi)
     return R, torch.einsum('...ij,...j->...i', V, rho)
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> (...,6) [rho, phi]."""
+    phi = so3_log(R)
+    rho = torch.einsum('...ij,...j->...i', so3_left_jacobian_inv(phi), t)
+    return torch.cat([rho, phi], dim=-1)
 
 
 def se3_inv(R: torch.Tensor, t: torch.Tensor):

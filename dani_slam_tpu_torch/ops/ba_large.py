@@ -13,8 +13,10 @@ of thousands of observations those differences lose low-order bits to
 cancellation, in the reference and on the card alike (PyTorch's CPU
 cumulative sum accumulates f32 in f64 and loses fewer); for landmarks seen
 from one or two keyframes, whose H_ll is nearly singular, those bits
-decide the step. Pose-indexed sums are keyframe-major reshape-sums. The
-inertial variant (full_inertial_ba) is not ported yet.
+decide the step. Pose-indexed sums are keyframe-major reshape-sums.
+full_inertial_ba is the whole-map visual-inertial variant: 15-DoF keyframe
+states, the inertial chain and bias priors inside the CG matvec, H_ll and
+g_l through the same _segsum (so the same cancellation).
 """
 from __future__ import annotations
 
@@ -196,3 +198,170 @@ def ba_pcg_chunk(carry, pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
     for _ in range(iters):
         carry = lm_iter(carry)
     return carry
+
+
+# ---------------------------------------------------------------------------
+# Full (whole-map) visual-inertial BA (reference Optimizer::FullInertialBA
+# src/Optimizer.cc:392)
+# ---------------------------------------------------------------------------
+
+def full_inertial_ba(R0, t0, v0, bg0, ba0, pose_fixed, lm0, lm_valid, cam,
+                     obs_lm, obs_xy, obs_valid, preints, edge_valid, calib,
+                     prior_g: float = 0.0, prior_a: float = 0.0,
+                     iters: int = 8, cg_iters: int = 50, robust: bool = True,
+                     full_info: bool = True):
+    """Whole-map VI BA: every keyframe's 15-DoF state in temporal order and
+    every landmark, the inertial chain between consecutive keyframes and
+    bias priors toward zero with the staged weights (prior_g, prior_a) of
+    the IMU initialization. obs_lm [P,N] GLOBAL landmark ids (-1 none),
+    obs_xy [P,N,2]; preints stacked over the P-1 pairs, edge_valid [P-1];
+    pose_fixed freezes only the pose dofs. The reduced system is never
+    formed: CG's matvec applies the visual Schur complement through the
+    sparse H_pl blocks and the inertial chain as a block-tridiagonal term.
+    Returns ops/viba.VIBAResult."""
+    from dani_slam_tpu_torch.ops import imu as imu_ops
+    from dani_slam_tpu_torch.ops import viba as viba_ops
+
+    P, N = obs_lm.shape
+    L = lm0.shape[0]
+    M = P * N
+    dev = R0.device
+    delta = CHI2_MONO ** 0.5
+    obs_kf = torch.arange(P, device=dev).repeat_interleave(N)
+    olm_flat = torch.where(obs_valid, obs_lm,
+                           torch.zeros_like(obs_lm)).reshape(-1).long()
+    ovalid_flat = (obs_valid & (obs_lm >= 0)).reshape(-1)
+    oxy_flat = obs_xy.reshape(-1, 2)
+    base_valid = ovalid_flat & lm_valid[olm_flat]
+    perm, seg_start, seg_end = _landmark_segments(olm_flat, base_valid, L)
+    olm_2d = olm_flat.reshape(P, N)
+    edge_W = imu_ops.edge_information(preints, calib,
+                                      diag_only=not full_info)
+    edge_W = edge_W * edge_valid[:, None, None].to(edge_W.dtype)
+    prior_diag = torch.cat([torch.zeros(9, device=dev),
+                            torch.full((3,), float(prior_g), device=dev),
+                            torch.full((3,), float(prior_a), device=dev)])
+    eye3 = torch.eye(3, device=dev)
+    keep = torch.ones(P, 15, device=dev)
+    keep[:, :6] = (~pose_fixed).to(torch.float32)[:, None]
+    zero = torch.zeros((), device=dev)
+
+    def vis_cost(R, t, lm):
+        r, _, _ = ba_ops._residuals(R, t, cam, lm, obs_kf, olm_flat,
+                                    oxy_flat)
+        c = torch.sum(r * r, dim=-1)
+        rho = ba_ops._rho(c, delta) if robust else c
+        return torch.sum(torch.where(base_valid, rho, torch.zeros_like(rho)))
+
+    def total_cost(R, t, v, bg, ba_, lm):
+        zero15 = torch.zeros(P - 1, 15, device=dev)
+        r_e = viba_ops._imu_edge_residual(
+            zero15, zero15, R[:-1], t[:-1], v[:-1], bg[:-1], ba_[:-1], R[1:],
+            t[1:], v[1:], bg[1:], ba_[1:], preints, calib.R_bc, calib.t_bc)
+        ci = torch.einsum('ek,ekl,el->', r_e, edge_W, r_e)
+        cp = torch.sum((bg * bg) * prior_g + (ba_ * ba_) * prior_a)
+        return vis_cost(R, t, lm) + ci + cp
+
+    R, t, v, bg, ba_, lm = R0, t0, v0, bg0, ba0, lm0
+    lam = torch.full((), 1e-4, device=dev)
+    for _ in range(iters):
+        r, Jpose, Jpt = ba_ops._residuals(R, t, cam, lm, obs_kf, olm_flat,
+                                          oxy_flat)
+        c = torch.sum(r * r, dim=-1)
+        w = ba_ops._robust_w(c, delta) if robust else torch.ones_like(c)
+        w = torch.where(base_valid, w, torch.zeros_like(w))
+        A = torch.einsum('mki,mk,mkj->mij', Jpose, w[:, None].expand(M, 2),
+                         Jpt)
+        JtJ_p = torch.einsum('mik,m,mil->mkl', Jpose, w, Jpose)
+        JtJ_l = torch.einsum('mik,m,mil->mkl', Jpt, w, Jpt)
+        g_p_m = torch.einsum('mik,m,mi->mk', Jpose, w, r)
+        g_l_m = torch.einsum('mik,m,mi->mk', Jpt, w, r)
+        H_pp = JtJ_p.reshape(P, N, 6, 6).sum(1)
+        g_p6 = g_p_m.reshape(P, N, 6).sum(1)
+        H_ll = _segsum(JtJ_l.reshape(M, 9)[perm], seg_start,
+                       seg_end).reshape(L, 3, 3)
+        g_l = _segsum(g_l_m[perm], seg_start, seg_end)
+        H_ll_d = H_ll + (lam * torch.diag_embed(
+            torch.diagonal(H_ll, dim1=-2, dim2=-1)) + 1e-8 * eye3)
+        Hll_inv = ba_ops._inv3x3(H_ll_d)
+        A4 = A.reshape(P, N, 6, 3)
+
+        r_e, Ji, Jj = viba_ops.imu_edge_parts(R, t, v, bg, ba_, preints,
+                                              calib)
+        We = edge_W
+
+        hg = torch.einsum('lij,lj->li', Hll_inv, g_l)
+        rhs6 = g_p6 - torch.einsum('pnij,pnj->pni', A4, hg[olm_2d]).sum(1)
+        rhs = torch.zeros(P, 15, device=dev)
+        rhs[:, :6] = rhs6
+        rhs[:-1] += torch.einsum('eki,ekl,el->ei', Ji, We, r_e)
+        rhs[1:] += torch.einsum('eki,ekl,el->ei', Jj, We, r_e)
+        rhs = rhs + prior_diag * torch.cat(
+            [torch.zeros(P, 9, device=dev), bg, ba_], 1)
+        rhs = rhs * keep
+
+        diag_v = torch.zeros(P, 15, device=dev)
+        diag_v[:, :6] = torch.diagonal(H_pp, dim1=-2, dim2=-1)
+        diag_i = torch.zeros(P, 15, device=dev)
+        diag_i[:-1] += torch.einsum('eki,ekl,eli->ei', Ji, We, Ji)
+        diag_i[1:] += torch.einsum('eki,ekl,eli->ei', Jj, We, Jj)
+        diag_all = diag_v + diag_i + prior_diag
+        diag_damped = diag_all * (1.0 + lam) + 1e-6
+        prec = torch.where(keep > 0,
+                           1.0 / torch.clamp(diag_damped, min=1e-8),
+                           torch.ones_like(diag_damped))
+
+        def matvec(x):
+            x = x * keep
+            x6 = x[:, :6]
+            u = torch.einsum('pnij,pi->pnj', A4, x6)
+            y = _segsum(u.reshape(M, 3)[perm], seg_start, seg_end)
+            z = torch.einsum('lij,lj->li', Hll_inv, y)
+            w2 = torch.einsum('pnij,pnj->pni', A4, z[olm_2d]).sum(1)
+            Sx6 = torch.einsum('pij,pj->pi', H_pp, x6) - w2
+            ve = (torch.einsum('eij,ej->ei', Ji, x[:-1]) +
+                  torch.einsum('eij,ej->ei', Jj, x[1:]))
+            wve = torch.einsum('ekl,el->ek', We, ve)
+            Sx = torch.cat([Sx6, torch.zeros(P, 9, device=dev)], 1)
+            Sx = Sx + torch.cat([torch.einsum('eij,ei->ej', Ji, wve),
+                                 torch.zeros(1, 15, device=dev)], 0)
+            Sx = Sx + torch.cat([torch.zeros(1, 15, device=dev),
+                                 torch.einsum('eij,ei->ej', Jj, wve)], 0)
+            Sx = Sx + prior_diag * x
+            Sx = Sx + (lam * diag_all + 1e-6) * x
+            return Sx * keep + x * (1.0 - keep)
+
+        b = -rhs
+        x = torch.zeros(P, 15, device=dev)
+        rvec = b
+        pv = prec * b
+        rz = torch.sum(b * pv)
+        for _ in range(cg_iters):
+            Ap = matvec(pv)
+            pAp = torch.sum(pv * Ap)
+            alpha = torch.where(pAp > 1e-20, rz / pAp, zero)
+            x = x + alpha * pv
+            rvec = rvec - alpha * Ap
+            z = prec * rvec
+            rz_new = torch.sum(rvec * z)
+            beta = torch.where(rz > 1e-20, rz_new / rz, zero)
+            pv = z + beta * pv
+            rz = rz_new
+        dx = x * keep
+
+        u = torch.einsum('pnij,pi->pnj', A4, dx[:, :6])
+        y = _segsum(u.reshape(M, 3)[perm], seg_start, seg_end)
+        dl = -torch.einsum('lij,lj->li', Hll_inv, g_l + y)
+        dl = torch.where(lm_valid[:, None], dl, torch.zeros_like(dl))
+
+        dR, dt = lie.se3_exp(dx[:, :6])
+        cand = (dR @ R, torch.einsum('pij,pj->pi', dR, t) + dt,
+                v + dx[:, 6:9], bg + dx[:, 9:12], ba_ + dx[:, 12:15],
+                lm + dl)
+        better = total_cost(*cand) < total_cost(R, t, v, bg, ba_, lm)
+        R, t, v, bg, ba_, lm = (torch.where(better, a, b_) for a, b_ in
+                                zip(cand, (R, t, v, bg, ba_, lm)))
+        lam = torch.clamp(torch.where(better, lam * 0.5, lam * 4.0), 1e-8,
+                          1e8)
+    return viba_ops.VIBAResult(R, t, v, bg, ba_, lm,
+                               total_cost(R, t, v, bg, ba_, lm))

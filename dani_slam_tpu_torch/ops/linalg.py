@@ -1,6 +1,6 @@
-"""Small dense SPD solves (counterpart of dani_slam_tpu/ops/linalg.py; the
-port's solvers need only chol_solve), forward-mode Jacobians, and the SVDs
-that wait for the card, counted.
+"""Small dense SPD solves and inverses (counterpart of
+dani_slam_tpu/ops/linalg.py), forward-mode Jacobians, and the SVDs and
+eigendecompositions that wait for the card, counted.
 
 The JAX package unrolls a Cholesky factorisation at trace time because the
 LAPACK custom call is latency-bound on a TPU. PyTorch has batched Cholesky
@@ -29,6 +29,21 @@ def chol_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
     return torch.linalg.solve_triangular(L.transpose(-1, -2), y,
                                          upper=True)[..., 0]
+
+
+def tri_lower_inv(L: torch.Tensor) -> torch.Tensor:
+    """Inverse of a lower-triangular L [..., n, n] (a triangular solve
+    against the identity: no host read)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand(
+        L.shape)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def chol_inv(A: torch.Tensor) -> torch.Tensor:
+    """A^-1 for SPD A [..., n, n] via Cholesky, Linv^T Linv (the 9x9
+    preintegration covariances, the 15x15 marginalization block)."""
+    Li = tri_lower_inv(chol_factor(A))
+    return torch.einsum('...ki,...kj->...ij', Li, Li)
 
 
 def jacfwd(f, x: torch.Tensor):
@@ -67,3 +82,13 @@ def svdvals(A: torch.Tensor) -> torch.Tensor:
         SYNCS.count += 1
         SYNCS.svd += 1
     return torch.linalg.svdvals(A)
+
+
+def eigh(A: torch.Tensor):
+    """torch.linalg.eigh, which, like svd, reads cuSOLVER's status back to
+    the host on the card; counted in utils/device.SYNCS as one blocking
+    read (and in SYNCS.eigh)."""
+    if A.is_cuda:
+        SYNCS.count += 1
+        SYNCS.eigh += 1
+    return torch.linalg.eigh(A)

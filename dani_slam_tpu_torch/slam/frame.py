@@ -60,8 +60,8 @@ def build_frame_rgbd(sp_model, img, depth_img, cam: _cam.Camera, time: float,
                      box_mask=None) -> FrameFeatures:
     """RGB-D frame: depth sampled at keypoint locations (reference:
     Frame::ComputeStereoFromRGBD; metric depth kept directly)."""
-    t = torch.tensor(time, dtype=torch.float32, device=cam.device)
-    return _frame_rgbd_program(sp_model, img, depth_img, cam, t,
+    return _frame_rgbd_program(sp_model, img, depth_img, cam,
+                               _time(time, cam.device),
                                depth_factor, threshold, boxes, box_mask,
                                n_max=n_max)
 

@@ -34,10 +34,7 @@ import dataclasses
 import torch
 
 from dani_slam_tpu_torch.core import state as mstate
-from dani_slam_tpu_torch.models import lightglue
-from dani_slam_tpu_torch.ops import kernels
-
-WARMUP_ITERS = 3
+from dani_slam_tpu_torch.utils import graphs
 
 _GRAPHS: dict = {}         # static variant -> FrameGraph
 
@@ -100,32 +97,10 @@ class FrameGraph:
                 has_vel=True, matcher=matcher, detector=detector,
                 seed_rounds=rounds)
 
-        # warm-up on a side stream: library handles, workspaces, algorithm
-        # choices and staged constants are settled before capture
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_ITERS):
-                program()
-        torch.cuda.current_stream(dev).wait_stream(side)
-
-        before = self._counters()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._out = program()
-        after = self._counters()
-        # what one replay launches; the capture itself launched nothing
-        self._per_replay = tuple(a - b for a, b in zip(after, before))
-        self._set_counters(before)
-
-    @staticmethod
-    def _counters():
-        return (kernels.window_match_topk2.launches,
-                lightglue.FORWARDS.count)
-
-    @staticmethod
-    def _set_counters(vals):
-        kernels.window_match_topk2.launches, lightglue.FORWARDS.count = vals
+        # warm-up and capture as utils/graphs does for every graph of the
+        # port (the counters as before the capture; each replay adds)
+        self.graph, self._out, self._per_replay = graphs.capture(program,
+                                                                 dev)
 
     def _stage(self, tracker, img, depth_img, time):
         self.img.copy_(img)
@@ -154,8 +129,7 @@ class FrameGraph:
         tracker's map with the two fields a tracked frame changes."""
         self._stage(tracker, img, depth_img, time)
         self.graph.replay()
-        self._set_counters(tuple(c + d for c, d in zip(self._counters(),
-                                                       self._per_replay)))
+        graphs.count_replay(self._per_replay)
         feat, R, t, bind, counts6, st2, vel2, ref_pose, dyn = self._out
         c = torch.clone
         feat = type(feat)(*(None if x is None else c(x) for x in feat))

@@ -376,17 +376,57 @@ def local_bundle_adjustment(st: mstate.MapState, cam, center_kf,
                                obs_lm=obs_upd)
 
 
+def inertial_gate(st: mstate.MapState, k, killed, nd_window: int = 21):
+    """Temporal-chain guards of one culling candidate k (0-d slot tensor)
+    given the kills so far (reference KeyFrameCulling's inertial branch,
+    src/LocalMapping.cc:1012-1045): the map holds more than nd_window
+    keyframes, k is not one of the two newest, both temporal neighbors
+    exist, and the gap t_next - t_prev they would leave is below 3 s with
+    the IMU initialized and k older than the nd_window newest, or below
+    0.5 s, or (before VIBA2) k sits within 2 cm of its predecessor with a
+    gap below 3 s. Returns a 0-d bool."""
+    K = st.caps.K
+    arangeK = torch.arange(K, device=st.kf_time.device)
+    alive = st.kf_mask & ~killed
+    t_all = st.kf_time
+    t_k = sless.row(t_all, k)
+    others = alive & (arangeK != k)
+    inf = torch.full_like(t_all, float("inf"))
+    prev_key = torch.where(others & (t_all < t_k), t_all, -inf)
+    next_key = torch.where(others & (t_all > t_k), t_all, inf)
+    t_prev = torch.max(prev_key)
+    t_next = torch.min(next_key)
+    has_chain = torch.isfinite(t_prev) & torch.isfinite(t_next)
+    tgap = t_next - t_prev
+    sorted_t = -torch.sort(torch.where(alive, -t_all, inf)).values
+    not_newest2 = t_k < sorted_t[min(1, K - 1)]
+    older_than_window = t_k < sorted_t[min(nd_window, K - 1)]
+    ok_t = ((st.imu_initialized & older_than_window & (tgap < 3.0)) |
+            (tgap < 0.5))
+    prev_slot = torch.argmax(prev_key)
+    C_k = -torch.einsum('ji,j->i', sless.row(st.kf_R, k),
+                        sless.row(st.kf_t, k))
+    C_p = -torch.einsum('ji,j->i', sless.row(st.kf_R, prev_slot),
+                        sless.row(st.kf_t, prev_slot))
+    ok_d = (~st.imu_ba2 & (torch.linalg.norm(C_k - C_p) < 0.02) &
+            (tgap < 3.0))
+    n_alive = torch.sum(alive.to(torch.int32))
+    return (n_alive > nd_window) & not_newest2 & has_chain & (ok_t | ok_d)
+
+
 def cull_redundant_keyframes(st: mstate.MapState, center_kf,
                              n_check: int = 10, redundancy: float = 0.9,
-                             max_kills: int = 2, close_only: bool = False,
-                             close_depth: float = 3.0):
+                             max_kills: int = 2, inertial: bool = False,
+                             close_only: bool = False,
+                             close_depth: float = 3.0, nd_window: int = 21):
     """Remove up to max_kills covisible neighbors of center_kf whose
     landmarks are >= `redundancy` observed by >= 3 other keyframes, scored
     sequentially (earlier kills' observations discounted) and applied in
     one update (reference: LocalMapping::KeyFrameCulling). close_only counts
     only close points (measured depth in (0, close_depth)) toward the
-    fraction, the stereo / RGB-D policy; the inertial temporal guards come
-    with a later slice."""
+    fraction, the stereo / RGB-D policy; `inertial` adds the temporal-chain
+    guards of inertial_gate to every kill (the preintegration windows
+    merge across a culled keyframe in the System)."""
     K, L = st.caps.K, st.caps.L
     dev = st.kf_R.device
     neigh, w = mstate.best_covisible(st, center_kf, n_check)
@@ -420,6 +460,8 @@ def cull_redundant_keyframes(st: mstate.MapState, center_kf,
         i = torch.argmax(fracs)
         k_i = sless.row(neigh, i)
         kill = sless.row(fracs, i) >= redundancy
+        if inertial:
+            kill = kill & inertial_gate(st, k_i, killed, nd_window)
         adj = adj + sless.id_count(sless.row(obs_safe, k_i),
                                    sless.row(obs_valid, k_i) & kill, L)
         killed = killed | (kill & (arangeK == k_i))
@@ -471,6 +513,7 @@ def keyframe_step(st: mstate.MapState, cam, feat_xy, feat_valid, feat_desc,
                   do_aux: bool = True, max_depth: float = 40.0,
                   n_neighbors: int = 5, feat_octave=None, chain=None,
                   ba_iters: int = 5, cull_redundancy: float = 0.9,
+                  cull_inertial: bool = False,
                   cull_max_kills: int = 2, cull_close_only: bool = False,
                   cull_close_depth: float = 3.0, fuse_two_hop: int = 0,
                   matcher=None):
@@ -499,6 +542,7 @@ def keyframe_step(st: mstate.MapState, cam, feat_xy, feat_valid, feat_desc,
         st = cull_bad_landmarks(st, st.next_kf_counter)
         st = cull_redundant_keyframes(st, k, redundancy=cull_redundancy,
                                       max_kills=cull_max_kills,
+                                      inertial=cull_inertial,
                                       close_only=cull_close_only,
                                       close_depth=cull_close_depth)
     chain_out = None

@@ -2,10 +2,16 @@
 call track_monocular / track_stereo / track_rgbd per frame, save the
 trajectory, shutdown.
 
-The port covers the three visual sensors without IMU: monocular (two-view
+The port covers the three visual sensors: monocular (two-view
 initialization, the multi-level pyramid, Sim3 loop correction with scale),
 rectified stereo (depth from stereo matching, LightGlue when the matcher is
-loaded) and RGB-D; plain or pipelined tracking, the LightGlue matcher
+loaded) and RGB-D, and the two inertial sensors without a scale estimate,
+IMU_STEREO and IMU_RGBD (preintegration between frames, IMU prediction and
+the visual-inertial refinement with the marginalized prior, the IMU coast
+while recently lost, IMU initialization with the staged full inertial BA,
+local inertial BA in place of the visual one once initialized, the
+inertial keyframe-culling policy and merge gates); plain or pipelined
+tracking, the LightGlue matcher
 (matcher="auto") or descriptor mutual-NN (matcher=None), dynamic-object
 masking on the RGB-D path, loop closing with its time-sliced correction and
 global BA, relocalization of a lost frame, and an Atlas that stashes the
@@ -13,13 +19,14 @@ map on an unrecoverable loss or a timestamp jump, starts a new one, and
 welds the new map back into a stored one when place recognition finds the
 overlap. Each frame runs the frontend and the tracker (on the RGB-D path in
 pipelined mode one captured device program per tracked frame on the card;
-monocular and stereo frames run eagerly) and, on a keyframe, the mapping
-step inline; the loop closer and the merge run when the keyframe's slot is
-read back. Everything runs on `device` ("cuda" by default; asking for CUDA
-without it raises).
+monocular, stereo and inertial frames run eagerly) and, on a keyframe, the
+mapping step inline; the loop closer and the merge run when the keyframe's
+slot is read back. Everything runs on `device` ("cuda" by default; asking
+for CUDA without it raises).
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Optional
 
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from dani_slam_tpu_torch.core import cameras as _cam
+from dani_slam_tpu_torch.core import lie
 from dani_slam_tpu_torch.core import state as mstate
 from dani_slam_tpu_torch.models import vocab
 from dani_slam_tpu_torch.slam import loopclosing as lc
@@ -34,7 +42,7 @@ from dani_slam_tpu_torch.slam import mapping, tracking
 from dani_slam_tpu_torch.slam.atlas import Atlas
 from dani_slam_tpu_torch.slam import frame as frame_mod
 from dani_slam_tpu_torch.slam.frame import FrameFeatures
-from dani_slam_tpu_torch.utils.device import pull, resolve_device
+from dani_slam_tpu_torch.utils.device import pull, resolve_device, upload
 
 
 class Sensor(enum.Enum):
@@ -59,7 +67,11 @@ class System:
     `n_levels` and `scale_factor` set the monocular pyramid (the
     reference's mono configurations run 8 levels, RGB-D and stereo 1);
     `close_depth` (metres), when given, makes keyframe culling count only
-    close points, the reference's stereo / RGB-D policy."""
+    close points, the reference's stereo / RGB-D policy. `imu_calib` (IMU
+    sensors): an ops.imu.ImuCalib, or any object with its fields
+    (core/config's Settings.imu_calib()); the default calibration when
+    None. IMU_MONOCULAR raises NotImplementedError (ROADMAP queue 1,
+    inertial part 2)."""
 
     def __init__(self, cam: _cam.Camera, sensor: Sensor = Sensor.RGBD,
                  caps: Optional[mstate.MapCaps] = None, sp_params=None,
@@ -68,12 +80,16 @@ class System:
                  enable_relocalization: bool = True,
                  pipelined: bool = False, detector=None, matcher="auto",
                  n_levels: int = 1, scale_factor: float = 1.2,
-                 close_depth: Optional[float] = None, device="cuda"):
+                 close_depth: Optional[float] = None, imu_calib=None,
+                 device="cuda"):
+        if sensor == Sensor.IMU_MONOCULAR:
+            raise NotImplementedError(
+                "Sensor.IMU_MONOCULAR: the scale-free inertial "
+                "initialization and scale refinement are not ported yet "
+                "(ROADMAP.md queue 1, 'Inertial, part 2')")
         mode = {Sensor.MONOCULAR: "mono", Sensor.STEREO: "stereo",
-                Sensor.RGBD: "rgbd"}.get(sensor)
-        if mode is None:
-            raise NotImplementedError(f"{sensor}: the port has no inertial "
-                                      "path yet")
+                Sensor.RGBD: "rgbd", Sensor.IMU_STEREO: "stereo",
+                Sensor.IMU_RGBD: "rgbd"}[sensor]
         self.device = resolve_device(device)
         # f32 SLAM geometry in full precision (the JAX package sets
         # jax_default_matmul_precision="highest"); bf16 stays only where
@@ -99,7 +115,11 @@ class System:
         # cleared by activate_localization_mode: keyframes are then dropped
         self.enable_mapping = True
         self.aux_every = 2
-        self.cull_redundancy = 0.9
+        # keyframe-culling policy by sensor (reference KeyFrameCulling,
+        # src/LocalMapping.cc:914-920): redundancy 0.5 for stereo / RGB-D
+        # with an IMU, else 0.9; the temporal guards for any inertial map
+        self.use_imu = sensor in (Sensor.IMU_STEREO, Sensor.IMU_RGBD)
+        self.cull_redundancy = 0.5 if self.use_imu else 0.9
         self.cull_max_kills = 4
         self.fuse_two_hop = 4
         self.ba_iters = 5
@@ -145,6 +165,31 @@ class System:
             self.tracker.reloc_fn = self._relocalize
         self._reloc_gen = torch.Generator(
             device=self.device).manual_seed(seed + 1)
+        # the inertial pipeline (reference: preintegration between frames,
+        # src/Tracking.cc:1643; InitializeIMU and its staging,
+        # src/LocalMapping.cc:1175, :204-233)
+        self.local_inertial_bas = 0     # calls, for the run's report
+        self.full_inertial_bas = 0
+        if self.use_imu:
+            from dani_slam_tpu_torch.ops import imu as imu_ops
+            from dani_slam_tpu_torch.slam.inertial import InertialState
+            if imu_calib is not None and \
+                    not isinstance(imu_calib, imu_ops.ImuCalib):
+                imu_calib = imu_ops.calib_from_numpy(imu_calib, self.device)
+            self.tracker.inertial = InertialState(imu_calib,
+                                                  device=self.device)
+            self._kf_window_marks = []   # (slot, frame id, window count)
+            self._recent_kfs = []        # temporal keyframe chain
+            self._recent_preints = []    # keyframe-to-keyframe preints
+            self.vi_window = 10          # Nd (reference Nd = 10)
+            # bLarge: strong tracking widens the window and shortens the LM
+            # budget (reference: 25 keyframes x 4 iterations when more than
+            # 75 matches, src/Optimizer.cc:2387-2392)
+            self.vi_window_large = 25
+            self.vi_large_tracked = 75
+            self._viba_stage = -1        # -1 before init; 0/1/2 done
+            self._t_imu_init = None
+            self._frame_marks = {}       # frame id -> window count
 
     # -- frame entry points -----------------------------------------------
 
@@ -160,27 +205,45 @@ class System:
         return self.track_features(feat, timestamp=timestamp)
 
     def track_stereo(self, img_left, img_right, timestamp: float,
-                     baseline: float):
+                     baseline: float, imu_window=None):
         """Rectified stereo pair in, T_cw out: SuperPoint on both images as
         one batch, stereo depth (LightGlue when the matcher is loaded,
         descriptor mutual-NN otherwise) -> tracker -> mapping on a keyframe.
-        Unrectified input is remapped first with ops/rectify. Returns
-        (state, R, t)."""
+        Unrectified input is remapped first with ops/rectify. imu_window
+        (IMU_STEREO): slam/inertial.ImuWindow of the samples since the
+        previous frame. Returns (state, R, t)."""
         feat = frame_mod.build_frame_stereo(
             self._sp(), torch.as_tensor(img_left, device=self.device),
             torch.as_tensor(img_right, device=self.device), self.cam,
             baseline, timestamp, n_max=self.n_features, matcher=self.matcher)
-        return self.track_features(feat, timestamp=timestamp)
+        return self.track_features(feat, imu_window=imu_window,
+                                   timestamp=timestamp)
 
     def track_rgbd(self, img, depth, timestamp: float,
-                   depth_factor: float = 5000.0):
+                   depth_factor: float = 5000.0, imu_window=None):
         """RGB-D image pair in (img (H,W,3) uint8, depth (H,W) encoded),
         T_cw out: detector -> frontend -> tracker -> mapping on a keyframe;
         in pipelined steady state the whole frame is one device program.
+        IMU_RGBD frames take the feature path (the fused frame function
+        carries no IMU), with imu_window (slam/inertial.ImuWindow) the
+        samples since the previous frame; the JAX package's track_rgbd has
+        no such argument, and its IMU_RGBD image path integrates nothing.
         Returns (state, R, t)."""
         tr = self.tracker
         tr.sp_params = self._sp()
         self._time_jump_guard(timestamp)
+        if self.use_imu:
+            boxes = box_mask = dyn_ratio = None
+            img = torch.as_tensor(img, device=self.device)
+            if self.detector is not None:
+                boxes, box_mask, dyn_ratio = \
+                    self.detector.dynamic_mask_inputs(img)
+            feat = frame_mod.build_frame_rgbd(
+                self._sp(), img, torch.as_tensor(depth, device=self.device),
+                self.cam, timestamp, depth_factor=depth_factor,
+                n_max=self.n_features, boxes=boxes, box_mask=box_mask)
+            return self.track_features(feat, dyn_ratio=dyn_ratio,
+                                       imu_window=imu_window)
         img = torch.as_tensor(img, device=self.device)
         depth = torch.as_tensor(depth, device=self.device)
         # a fill on the device: no per-frame copy from pageable host memory
@@ -192,16 +255,31 @@ class System:
         return self._after_track(state, R, t)
 
     def track_features(self, feat: FrameFeatures, dyn_ratio=None,
-                       timestamp: Optional[float] = None):
+                       imu_window=None, timestamp: Optional[float] = None):
         """Pre-extracted features in (custom frontends, tests).
         dyn_ratio: device scalar in [0,1], the fraction of the image covered
-        by dynamic objects (keyframe veto above 0.8). timestamp: host-side
+        by dynamic objects (keyframe veto above 0.8). imu_window: the IMU
+        samples since the previous frame (IMU sensors). timestamp: host-side
         frame time for the timestamp-jump guard; no device pull is ever made
         for it."""
         if timestamp is not None:
             self._time_jump_guard(timestamp)
-        self.tracker.dynamic_ratio = dyn_ratio
-        state, R, t = self.tracker.track(feat)
+        tr = self.tracker
+        if self.use_imu and imu_window is not None:
+            tr.inertial.integrate_frame(imu_window)
+        if self.use_imu:
+            # each frame's window count, so the keyframes made by the
+            # initialization (inside the tracker) get their chain marks
+            self._frame_marks[tr.frame_id] = len(tr.inertial.frame_windows)
+            while len(self._frame_marks) > 30:
+                self._frame_marks.pop(next(iter(self._frame_marks)))
+        tr.dynamic_ratio = dyn_ratio
+        state, R, t = tr.track(feat)
+        if self.use_imu and tr.init_kfs:
+            for (slot, fid) in tr.init_kfs:
+                self._kf_window_marks.append(
+                    (slot, fid, self._frame_marks.get(fid, 0)))
+            tr.init_kfs = None
         return self._after_track(state, R, t)
 
     def _time_jump_guard(self, timestamp: float):
@@ -243,6 +321,13 @@ class System:
             lcl.bow = torch.zeros_like(lcl.bow)
             lcl.last_loop_kf = -10 ** 9
         self._kf_count = 0
+        if self.use_imu:
+            self._kf_window_marks = []
+            self._recent_kfs = []
+            self._recent_preints = []
+            self._viba_stage = -1
+            self._t_imu_init = None
+            self._frame_marks = {}
 
     # -- mapping (keyframe-rate) -----------------------------------------
 
@@ -254,7 +339,10 @@ class System:
         tr.pending_kf = None
         self._kf_count += 1
         fid = tr.frame_id - 1
-        do_ba = self._kf_count > 1
+        # once the IMU is initialized the local inertial BA replaces the
+        # visual one (reference src/LocalMapping.cc:150-151)
+        imu_ready = self.use_imu and tr.inertial.initialized
+        do_ba = self._kf_count > 1 and not imu_ready
         do_aux = self._kf_count % self.aux_every == 0 or self._kf_count <= 2
         two_hop = (self.fuse_two_hop
                    if (self._kf_count % (2 * self.aux_every) == 0
@@ -269,6 +357,7 @@ class System:
             feat_octave=feat.octave_or_zeros(), matcher=self.matcher,
             chain=(tr.R, tr.t, tr.R_last, tr.t_last), ba_iters=ba_iters,
             cull_redundancy=self.cull_redundancy,
+            cull_inertial=self.use_imu,
             cull_max_kills=self.cull_max_kills,
             cull_close_only=self.close_depth is not None,
             cull_close_depth=(self.close_depth
@@ -280,8 +369,19 @@ class System:
         self._correct_pending_chain(cR, ct)
         tr.ref_kf_fid = fid
         self._kf_pulls.append((k, n_tracked, self._kf_count, tr.frame_id))
-        if self.atlas.n_maps() > 0 or not self.deferred_kf:
-            self._resolve_kf_pull()   # a map merge would need host ids now
+        if self.use_imu or self.atlas.n_maps() > 0 or not self.deferred_kf:
+            # the inertial chain and a map merge need host slots now
+            self._resolve_kf_pull()
+        if self.use_imu:
+            # (slot, frame id, window count) at insertion: the frame id
+            # tells a reused slot apart, the window count pairs the
+            # preintegration spans with this keyframe chain
+            self._kf_window_marks.append(
+                (tr.ref_kf, fid, len(tr.inertial.frame_windows)))
+            self._maybe_initialize_imu()
+            self._record_kf_preint()
+            if tr.inertial.initialized:
+                self._run_local_inertial_ba()
 
     def _correct_pending_chain(self, cR, ct):
         """Apply a map-frame pose correction to the in-flight pipeline:
@@ -346,6 +446,170 @@ class System:
             tr.R_last, tr.t_last, cR, ct)
         self._correct_pending_chain(cR, ct)
 
+    # -- the inertial chain (keyframe-rate) -------------------------------
+
+    def _record_kf_preint(self):
+        """Preintegrate the span since the previous keyframe and extend the
+        temporal keyframe chain of the local inertial BA."""
+        tr = self.tracker
+        marks = self._kf_window_marks
+        pre = None
+        if len(marks) >= 2:
+            pre = tr.inertial.kf_chain_preintegrations(
+                [(marks[-2][2], marks[-1][2])])[0]
+        self._recent_kfs.append((marks[-1][0], marks[-1][1]))
+        self._recent_preints.append(pre)
+        if len(self._recent_kfs) > max(self.vi_window, self.vi_window_large):
+            self._recent_kfs.pop(0)
+            self._recent_preints.pop(0)
+
+    def _refine_imu_scale(self):
+        """The monocular scale refinement of the reference package
+        (ScaleRefinement): not ported (inertial part 2)."""
+        raise NotImplementedError(
+            "_refine_imu_scale belongs to IMU_MONOCULAR (ROADMAP.md queue 1, "
+            "'Inertial, part 2')")
+
+    def _padded_chain(self, slots, preints, P):
+        """(slot_arr [P], valid [P], stacked Preintegrated [P-1],
+        edge_ok [P-1]) of a chain padded in front to P slots; `preints`
+        pairs with slots[1:] when one shorter, else with every slot (the
+        first entry then belongs to the span before the window)."""
+        from dani_slam_tpu_torch.ops import imu as imu_ops
+        pad = P - len(slots)
+        dev = self.device
+        slot_arr = upload(np.asarray([slots[0]] * pad + slots, np.int64),
+                          dev)
+        valid = upload(np.asarray([False] * pad + [True] * len(slots)), dev)
+        ident = imu_ops.identity_preintegration(dev)
+        spans = [None] * pad + list(preints)
+        spans = spans[len(spans) - (P - 1):]
+        stacked = imu_ops.stack_preints([p if p is not None else ident
+                                         for p in spans])
+        edge_ok = upload(np.asarray([p is not None for p in spans]), dev)
+        return slot_arr, valid, stacked, edge_ok
+
+    def _run_local_inertial_ba(self):
+        """Temporal-window VI BA (reference LocalInertialBA in place of the
+        visual local BA once the IMU is initialized)."""
+        from dani_slam_tpu_torch.slam import inertial_mapping
+        tr = self.tracker
+        # bLarge only once a full large window exists
+        large = (tr.ref_kf_tracked > self.vi_large_tracked and
+                 len(self._recent_kfs) >= self.vi_window_large)
+        P = self.vi_window_large if large else self.vi_window
+        slots = [k for k, _ in self._recent_kfs[-P:]]
+        if len(slots) < 3:
+            return
+        slot_arr, valid, stacked, edge_ok = self._padded_chain(
+            slots, self._recent_preints[-P:], P)
+        tr.st = inertial_mapping.local_inertial_ba(
+            tr.st, self.cam, slot_arr, valid, stacked, edge_ok,
+            tr.inertial.calib, iters=4 if large else 6)
+        self.local_inertial_bas += 1
+
+    def _maybe_initialize_imu(self):
+        """IMU initialization once enough keyframes exist (reference
+        src/LocalMapping.cc:183-189), then the staged whole-map VI BA:
+        VIBA1 more than 5 s after the initialization with priors (1, 1e5),
+        VIBA2 after 15 s with none (src/LocalMapping.cc:204-233). The
+        keyframe times are read back (counted), as the reference package
+        reads them."""
+        from dani_slam_tpu_torch.slam import inertial as inert
+        tr = self.tracker
+        if tr.inertial.initialized:
+            now = float(pull(tr.st.kf_time[tr.ref_kf]))
+            elapsed = now - (self._t_imu_init or now)
+            one = torch.ones((), dtype=torch.bool, device=self.device)
+            if self._viba_stage == 0 and elapsed > 5.0:
+                self._run_full_inertial_ba(1.0, 1e5)
+                tr.st = dataclasses.replace(tr.st, imu_ba1=one)
+                self._viba_stage = 1
+            elif self._viba_stage == 1 and elapsed > 15.0:
+                self._run_full_inertial_ba(0.0, 0.0)
+                tr.st = dataclasses.replace(tr.st, imu_ba2=one)
+                self._viba_stage = 2
+            if tr.sensor == "mono" and len(self._kf_window_marks) % 3 == 0:
+                self._refine_imu_scale()
+            return
+        if len(self._kf_window_marks) < 5:
+            return
+        # marks whose keyframes are still alive: the windows between
+        # consecutive alive marks merge the spans of culled keyframes
+        run = self._alive_chain()
+        if len(run) < 5:
+            return
+        bounds = [(a[2], b[2]) for a, b in zip(run[:-1], run[1:])]
+        preints = tr.inertial.kf_chain_preintegrations(bounds)
+        kf_ids = [slot for slot, _, _ in run]
+        st2, ok = inert.initialize_imu(tr.st, tr.inertial, kf_ids, preints,
+                                       mono_scale_free=tr.sensor == "mono")
+        if not ok:
+            return
+        tr.st = dataclasses.replace(
+            st2, imu_initialized=torch.ones((), dtype=torch.bool,
+                                            device=self.device))
+        # the tracker's poses live in the old world frame: apply the
+        # gravity rotation and scale the map received
+        Rg, s_scl = tr.inertial.last_alignment
+        tr.R, tr.t = tr.R @ Rg.T, s_scl * tr.t
+        tr.R_last, tr.t_last = tr.R_last @ Rg.T, s_scl * tr.t_last
+        if tr.vel is not None:
+            tr.vel = (tr.vel[0], s_scl * tr.vel[1])
+        # stage 0: FullInertialBA with the strong initialization priors
+        self._t_imu_init = float(pull(tr.st.kf_time[kf_ids[-1]]))
+        self._viba_stage = 0
+        self._run_full_inertial_ba(1e2, 1e10)
+
+    def _alive_chain(self):
+        """The recorded keyframe marks whose slot still holds the same
+        keyframe (frame-id match: slots are reused), in temporal order; one
+        counted read of the slots' masks and frame ids."""
+        st = self.tracker.st
+        mask, fids = pull(torch.stack([st.kf_mask.to(torch.int64),
+                                       st.kf_frame_id.to(torch.int64)]))
+        return [(s_, f, m) for (s_, f, m) in self._kf_window_marks
+                if mask[s_] and fids[s_] == f]
+
+    def _run_full_inertial_ba(self, prior_g: float, prior_a: float,
+                              iters: int = 8):
+        """Whole-map VI BA over the alive keyframe chain (padded to a
+        power of two, at least 8); the newest keyframe's correction is
+        carried onto the tracker's poses and its velocity and biases become
+        the tracker's."""
+        from dani_slam_tpu_torch.slam import inertial_mapping
+        tr = self.tracker
+        chain = self._alive_chain()
+        if len(chain) < 4:
+            return
+        bounds = [(a[2], b[2]) for a, b in zip(chain[:-1], chain[1:])]
+        preints = tr.inertial.kf_chain_preintegrations(bounds)
+        slots = [s_ for s_, _, _ in chain]
+        P_pad = 8
+        while P_pad < len(slots):
+            P_pad *= 2
+        P_pad = min(P_pad, self.caps.K)
+        if len(slots) > P_pad:
+            drop = len(slots) - P_pad
+            slots, preints = slots[drop:], preints[drop:]
+        slot_arr, valid, stacked, edge_ok = self._padded_chain(
+            slots, [None] + list(preints), P_pad)
+        k_new = slots[-1]
+        R_old, t_old = tr.st.kf_R[k_new], tr.st.kf_t[k_new]
+        tr.st = inertial_mapping.full_inertial_ba_map(
+            tr.st, self.cam, slot_arr, valid, stacked, edge_ok,
+            tr.inertial.calib, prior_g=prior_g, prior_a=prior_a, iters=iters)
+        self.full_inertial_bas += 1
+        R_new, t_new = tr.st.kf_R[k_new], tr.st.kf_t[k_new]
+        inv_old = lie.se3_inv(R_old, t_old)
+        tr.R, tr.t = lie.se3_mul(*lie.se3_mul(tr.R, tr.t, *inv_old), R_new,
+                                 t_new)
+        tr.R_last, tr.t_last = lie.se3_mul(
+            *lie.se3_mul(tr.R_last, tr.t_last, *inv_old), R_new, t_new)
+        tr.inertial.v_w = tr.st.kf_vel[k_new]
+        tr.inertial.bias_g = tr.st.kf_bias_g[k_new]
+        tr.inertial.bias_a = tr.st.kf_bias_a[k_new]
+
     def _try_map_merge(self):
         """Weld the active map into a stored one when place recognition
         finds the overlap (reference: the LoopClosing merge branch ->
@@ -357,10 +621,30 @@ class System:
         lcl = self.loop_closer
         qbow = lcl.bow[tr.ref_kf] if lcl is not None else None
 
+        imu_on = imu_ba1 = False
+        if self.use_imu:
+            imu_on, imu_ba1 = (bool(x) for x in pull(torch.stack([
+                tr.st.imu_initialized, tr.st.imu_ba1])))
+            imu_ba1 = imu_on and imu_ba1
+
         def verify(st_a, st_b, kf_a, kf_b, gen):
-            return lc.verify_cross_map_candidate(st_a, st_b, self.cam, kf_a,
-                                                 kf_b, gen,
-                                                 fix_scale=self.fix_scale)
+            T12, n, ok = lc.verify_cross_map_candidate(
+                st_a, st_b, self.cam, kf_a, kf_b, gen,
+                fix_scale=self.fix_scale)
+            # inertial merge gates (reference src/LoopClosing.cc:145-178):
+            # a scale outside (0.9, 1.1) is refused; after VIBA1 the
+            # relative rotation is clamped to its yaw (gravity is shared)
+            if imu_on and bool(pull(ok)):
+                R12, t12, s12 = T12
+                if not 0.90 < float(pull(s12)) < 1.1:
+                    return T12, n, False
+                if imu_ba1:
+                    yaw = float(pull(lie.so3_log(R12))[2])
+                    zero = torch.zeros((), device=self.device)
+                    R_yaw = lie.so3_exp(torch.stack([
+                        zero, zero, torch.full((), yaw, device=self.device)]))
+                    T12 = (R_yaw, t12, torch.ones((), device=self.device))
+            return T12, n, ok
 
         out = self.atlas.try_merge(tr.st, self.cam, tr.ref_kf, qbow,
                                    self._reloc_gen, verify)
@@ -384,6 +668,10 @@ class System:
         tr.st = lc.search_and_fuse(tr.st, self.cam, new_ref, out["cand_kf"])
         tr.st = mapping.local_bundle_adjustment(tr.st, self.cam,
                                                 tr.ref_kf_dev)
+        # an inertial map re-welds velocities and biases over the temporal
+        # window (reference MergeInertialBA, src/Optimizer.cc:3948)
+        if self.use_imu and tr.inertial.initialized:
+            self._run_local_inertial_ba()
         if lcl is not None:
             # the stored map's rows stay at their slots, the moved rows go
             # to theirs (written from the destination side)
@@ -399,6 +687,18 @@ class System:
             src = src[:K]
             lcl.bow = torch.where((src >= 0)[:, None],
                                   lcl.bow[torch.clamp(src, min=0)], base)
+        if self.use_imu:
+            # the inertial bookkeeping follows the moved keyframes
+            kf_map_h = pull(kf_map)
+            self._kf_window_marks = [
+                (int(kf_map_h[s_]), f, m)
+                for (s_, f, m) in self._kf_window_marks if kf_map_h[s_] >= 0]
+            kept = [((int(kf_map_h[s_]), f), p)
+                    for (s_, f), p in zip(self._recent_kfs,
+                                          self._recent_preints)
+                    if kf_map_h[s_] >= 0]
+            self._recent_kfs = [k for k, _ in kept]
+            self._recent_preints = [p for _, p in kept]
 
     def _relocalize(self, tracker, feat: FrameFeatures):
         """Relocalization of a lost frame (reference:

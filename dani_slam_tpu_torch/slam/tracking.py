@@ -1,6 +1,6 @@
 """Tracking: per-frame state machine and device steps (counterpart of
 dani_slam_tpu/slam/tracking.py for the monocular, stereo and RGB-D paths,
-plain and pipelined).
+plain and pipelined, with and without an IMU).
 
 Covered reference behaviors (src/Tracking.cc): MonocularInitialization
 (two-view reconstruction between a reference frame and the current one,
@@ -11,7 +11,12 @@ mutual-NN otherwise), TrackLocalMap (covisible local map, target-side
 projected search through the window-match kernel), NeedNewKeyFrame /
 CreateNewKeyFrame, localization-mode visual odometry on the last frame's
 depth points, and the relocalization attempt of a lost frame (through the
-System's reloc_fn, on both the plain and the pipelined path).
+System's reloc_fn, on both the plain and the pipelined path). With an
+initialized IMU (Tracker.inertial, set by the System for IMU sensors):
+PredictStateIMU replaces the constant-velocity prediction, every tracked
+frame is refined by the visual-inertial two-frame solve with the
+marginalized prior (PoseInertialOptimizationLastFrame + Marginalize), and
+a RECENTLY_LOST frame coasts on the IMU prediction.
 
 Pipelined mode defers each frame's lost/keyframe decision by pipeline_depth
 frames: the tracker state advances optimistically from device references,
@@ -393,6 +398,40 @@ def rgbd_frame_fused(sp_model, img, depth_img, cam, time, depth_factor,
             _ref_pose(st2, ref_kf), dyn_ratio)
 
 
+def vi_refine_step_marg(st: mstate.MapState, cam, feat: FrameFeatures,
+                        bind, R, t, v, bg, ba, R_prev, t_prev, v_prev,
+                        prior_info, preint, calib, use_depth: bool = False):
+    """Visual-inertial refinement of a tracked frame with the marginalized
+    prior: the previous frame's state optimized jointly (30 DoF) under the
+    carried 15x15 prior information, then Schur-marginalized out
+    (reference src/Optimizer.cc:4875, :2960). Returns (R, t, v, bg, ba,
+    n_inliers, prior_info_next)."""
+    has = (bind >= 0) & st.lm_mask[torch.clamp(bind, min=0).long()]
+    pts = st.lm_pos[torch.where(has, bind, torch.zeros_like(bind)).long()]
+    (R2, t2, v2, bg2, ba2, _, n,
+     info_next) = solvers.pose_inertial_optimize_marginalized(
+        R, t, v, bg, ba, R_prev, t_prev, v_prev, bg, ba, prior_info, preint,
+        calib, cam, pts, feat.xy, has,
+        obs_depth=feat.depth if use_depth else None, use_depth=use_depth,
+        iters=8)
+    return R2, t2, v2, bg2, ba2, n, info_next
+
+
+def bootstrap_prior_info(preint, calib, info_cap: float = 1e3):
+    """The first 15x15 prior information of the marginalized chain after
+    the IMU initialization: the capped diagonal of the inverse
+    preintegration covariance and the bias random walk."""
+    covs = torch.diagonal(preint.cov[:9, :9])
+    info9 = torch.clamp(1.0 / torch.clamp(covs, min=1e-8), 0.0, info_cap)
+    dtp = torch.clamp(preint.dt, min=1e-3)
+    walk = torch.cat([
+        (1.0 / torch.clamp(calib.walk_gyro ** 2 * dtp, min=1e-12))
+        .expand(3),
+        (1.0 / torch.clamp(calib.walk_acc ** 2 * dtp, min=1e-12))
+        .expand(3)])
+    return torch.diag(torch.cat([info9, torch.clamp(walk, 0.0, info_cap)]))
+
+
 # ---------------------------------------------------------------------------
 # Host-side tracker
 # ---------------------------------------------------------------------------
@@ -414,7 +453,9 @@ class Tracker:
     deferred by pipeline_depth frames (see the module docstring); on the
     image path a tracked frame with a velocity is one captured graph replay
     on a CUDA device (frame_graph; set it False to run the same function
-    eagerly), and the eager fused function otherwise."""
+    eagerly), and the eager fused function otherwise; on the feature path
+    (monocular, stereo, inertial frames) the track step is a graph replay
+    on the card (utils/graphs) under the same flag."""
 
     def __init__(self, cam: _cam.Camera, caps: mstate.MapCaps = None,
                  sensor: str = "rgbd", seed: int = 0,
@@ -466,6 +507,10 @@ class Tracker:
         # reference package's draws through it)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.init_sampler = None
+        # inertial bookkeeping (slam/inertial.InertialState), installed by
+        # the System for IMU sensors; reset() hands a fresh one (same
+        # calibration) to each new map
+        self.inertial = None
         self.reset()
 
     def reset(self):
@@ -500,6 +545,14 @@ class Tracker:
         self.dynamic_ratio = None
         self._host_dyn_ratio = None   # host copies that rode along with the
         self._host_n_kf = None        # counts of the fused image path
+        # (slot, frame id) of the keyframes made by the initialization, for
+        # the System's inertial chain marks
+        self.init_kfs = None
+        if self.inertial is not None:
+            from dani_slam_tpu_torch.slam.inertial import InertialState
+            self.inertial = InertialState(self.inertial.calib, device=dev)
+        self.last_time = None
+        self._vi_refined = False
 
     def flush(self):
         """Resolve all deferred decisions (call before reading results)."""
@@ -528,7 +581,8 @@ class Tracker:
         pipelined, initialization, lost — the staged path: (YOLO dynamic
         masking ->) SuperPoint frontend -> track(). Returns (state, R, t)."""
         from dani_slam_tpu_torch.slam import frame as frame_mod
-        if not (self.state == OK and self.pipelined):
+        imu_on = self.inertial is not None and self.inertial.initialized
+        if not (self.state == OK and self.pipelined and not imu_on):
             boxes = bmask = None
             if detector is not None:
                 boxes, bmask, self.dynamic_ratio = \
@@ -613,6 +667,7 @@ class Tracker:
         dev = self.device
         self._post_init(feat, bind, torch.eye(3, device=dev),
                         torch.zeros(3, device=dev), k0_host, k0, n_bound)
+        self.init_kfs = [(k0_host, self.frame_id)]
 
     def _initialize_mono(self, feat: FrameFeatures):
         """Keep a reference frame (> 100 keypoints) and try a two-view
@@ -641,13 +696,16 @@ class Tracker:
         tv = two_view_from_matches(key, self.cam, self.init_feat, feat, m)
         if not bool(pull(tv.ok)):
             return
-        st, _, k1, bind1, R, t = build_initial_map(
+        st, k0, k1, bind1, R, t = build_initial_map(
             self.st, self.cam, self.init_feat, feat, m, tv,
             self._init_feat_fid, self.frame_id)
-        k1_host, n_bound = (int(x) for x in pull(torch.stack([
-            k1.to(torch.int64), torch.sum(bind1 >= 0).to(torch.int64)])))
+        k0_host, k1_host, n_bound = (int(x) for x in pull(torch.stack([
+            k0.to(torch.int64), k1.to(torch.int64),
+            torch.sum(bind1 >= 0).to(torch.int64)])))
         self.st = st
         self._post_init(feat, bind1, R, t, k1_host, k1, n_bound)
+        self.init_kfs = [(k0_host, self._init_feat_fid),
+                         (k1_host, self.frame_id)]
         self.init_feat = None
 
     def _post_init(self, feat, bind, R, t, ref_kf, ref_kf_dev, n_bound):
@@ -665,18 +723,43 @@ class Tracker:
 
     # -- per-frame tracking ----------------------------------------------
 
+    def _imu_ready(self) -> bool:
+        ins = self.inertial
+        return (ins is not None and ins.initialized and
+                ins.last_preint is not None)
+
+    def _predict_imu(self):
+        ins = self.inertial
+        from dani_slam_tpu_torch.slam import inertial as inert
+        return inert.predict_state_imu(
+            self.R, self.t, ins.v_w, ins.last_preint, ins.bias_g, ins.bias_a,
+            ins.calib.R_bc, ins.calib.t_bc)
+
     def _track_frame(self, feat: FrameFeatures):
         R_cur, t_cur = self.R, self.t
         has_vel = self.vel is not None
         dev = self.device
+        imu = self._imu_ready()
+        if imu:
+            # the IMU prediction replaces the constant-velocity model
+            # (reference PredictStateIMU, src/Tracking.cc:1962-1977)
+            R_cur, t_cur, _ = self._predict_imu()
+            has_vel = False
         Rv, tv = self.vel if has_vel else (torch.eye(3, device=dev),
                                            torch.zeros(3, device=dev))
-        R_new, t_new, bind, counts, st = track_frame_step(
-            self.st, self.cam, feat, self.last_bind, R_cur, t_cur, Rv, tv,
-            self.ref_kf_dev, min_inliers=self.min_inliers_track,
-            use_depth=self.use_depth, has_vel=has_vel,
-            seed_rounds=self.seed_rounds, matcher=self.matcher,
-            select_on_device=self.pipelined)
+        R_new, t_new, bind, counts, st = self._track_step(
+            feat, R_cur, t_cur, Rv, tv, has_vel)
+        if imu:
+            ins = self.inertial
+            if ins.prior_info is None:
+                ins.prior_info = bootstrap_prior_info(ins.last_preint,
+                                                      ins.calib)
+            (R_new, t_new, ins.v_w, ins.bias_g, ins.bias_a, _,
+             ins.prior_info) = vi_refine_step_marg(
+                st, self.cam, feat, bind, R_new, t_new, ins.v_w, ins.bias_g,
+                ins.bias_a, self.R, self.t, ins.v_w, ins.prior_info,
+                ins.last_preint, ins.calib, use_depth=self.use_depth)
+            self._vi_refined = True
         if self.pipelined:
             self._defer(feat, R_new, t_new, bind, counts, st)
             return
@@ -702,12 +785,60 @@ class Tracker:
         if self._need_new_kf(n, n_ct, n_cf):
             self._create_kf(feat, bind, n_tracked_hint=n)
 
+    def _track_step(self, feat, R_cur, t_cur, Rv, tv, has_vel):
+        """track_frame_step of a feature frame. Pipelined on the card
+        (frame_graph) it is a CUDA graph replay per static variant
+        (utils/graphs): the three candidates are selected on the device, so
+        the step holds no host read; the map, the frame and the poses are
+        its inputs, the two map fields a tracked frame changes its
+        outputs."""
+        kw = dict(min_inliers=self.min_inliers_track,
+                  use_depth=self.use_depth, has_vel=has_vel,
+                  seed_rounds=self.seed_rounds, matcher=self.matcher,
+                  select_on_device=self.pipelined)
+        if not (self.pipelined and self.frame_graph):
+            return track_frame_step(self.st, self.cam, feat, self.last_bind,
+                                    R_cur, t_cur, Rv, tv, self.ref_kf_dev,
+                                    **kw)
+        from dani_slam_tpu_torch.utils import graphs
+        fields, cam, caps = mstate.TENSOR_FIELDS, self.cam, self.caps
+        nf = len(fields)
+
+        def step(*a):
+            st = mstate.MapState(**dict(zip(fields, a[:nf])), caps=caps)
+            f = FrameFeatures(*a[nf:nf + 6])
+            c = dataclasses.replace(cam, params=a[nf + 6], dist=a[nf + 7])
+            R, t, bind, counts, st2 = track_frame_step(
+                st, c, f, *a[nf + 8:], **kw)
+            return R, t, bind, counts, st2.lm_visible, st2.lm_found
+
+        args = (tuple(getattr(self.st, k) for k in fields) +
+                (feat.xy, feat.desc, feat.depth, feat.valid, feat.time,
+                 feat.octave_or_zeros(), cam.params, cam.dist,
+                 self.last_bind, R_cur, t_cur, Rv, tv, self.ref_kf_dev))
+        m = self.matcher
+        key = ("track_frame_step", tuple(caps), cam.kind, cam.width,
+               cam.height, None if m is None else id(m.model),
+               self.min_inliers_track, self.use_depth, has_vel,
+               self.seed_rounds)
+        R, t, bind, counts, vis, found = graphs.call(key, step, args)
+        return R, t, bind, counts, dataclasses.replace(
+            self.st, lm_visible=vis, lm_found=found)
+
     def _defer(self, feat, R_new, t_new, bind, counts, st, vel=None):
         """Pipelined mode: update the state optimistically from device
         references, start the asynchronous copy of the counts, and queue the
         lost/keyframe decision with a rollback snapshot."""
+        inert_snap = None
+        if self.inertial is not None:
+            # the inertial state moves optimistically too (the refinement,
+            # the frame's window): a rollback restores it with the pose
+            ins = self.inertial
+            inert_snap = (ins.v_w, ins.bias_g, ins.bias_a, ins.last_preint,
+                          len(ins.frame_windows), ins.prior_info)
         snapshot = (self.R, self.t, self.R_last, self.t_last, self.vel,
-                    self.st, self.last_bind, self.last_feat)
+                    self.st, self.last_bind, self.last_feat, self.last_time,
+                    inert_snap)
         read = AsyncRead(counts)
         self._apply_track(feat, R_new, t_new, bind, st, vel=vel)
         self._pending.append((read, feat, bind, (R_new, t_new), snapshot))
@@ -724,6 +855,16 @@ class Tracker:
         else:
             self.vel = lie.se3_mul(R_new, t_new, *lie.se3_inv(self.R_last,
                                                               self.t_last))
+        # world-frame velocity for the inertial chain by finite differences,
+        # unless the visual-inertial refinement produced one this frame
+        if self.inertial is not None and self.last_time is not None and \
+                not self._vi_refined:
+            dt = torch.clamp(feat.time - self.last_time, min=1e-3)
+            p_new = -torch.einsum('ji,j->i', R_new, t_new)
+            p_old = -torch.einsum('ji,j->i', self.R_last, self.t_last)
+            self.inertial.v_w = (p_new - p_old) / dt
+        self._vi_refined = False
+        self.last_time = feat.time
         self.R_last, self.t_last = R_new, t_new
         self.R, self.t = R_new, t_new
         self.last_feat = feat
@@ -752,7 +893,13 @@ class Tracker:
                 # roll back to before the failed frame, discarding the
                 # optimistic updates of the frames after it
                 (self.R, self.t, self.R_last, self.t_last, self.vel,
-                 self.st, self.last_bind, self.last_feat) = snapshot
+                 self.st, self.last_bind, self.last_feat, self.last_time,
+                 inert_snap) = snapshot
+                if inert_snap is not None and self.inertial is not None:
+                    ins = self.inertial
+                    (ins.v_w, ins.bias_g, ins.bias_a, ins.last_preint,
+                     n_wins, ins.prior_info) = inert_snap
+                    del ins.frame_windows[n_wins:]
                 for _ in range(len(self._pending) + 1):
                     if self._traj_dev:
                         self._traj_dev.pop()
@@ -774,12 +921,21 @@ class Tracker:
         branch runs Relocalization every frame). On success the tracker
         restarts from the relocalized pose with no velocity, so the next
         frame runs the eager path, and re-anchors on the keyframe that
-        relocalized it (one blocking read of its frame id)."""
+        relocalized it (one blocking read of its frame id). With an
+        initialized IMU a RECENTLY_LOST tracker first coasts: the pose chain
+        advances on the IMU prediction (reference src/Tracking.cc:2001-2033),
+        and a relocalization drops the marginalized prior."""
         self.frames_lost += 1
         if self.state == OK:
             self.state = RECENTLY_LOST
         elif self.frames_lost > 20:
             self.state = LOST
+        if self.state == RECENTLY_LOST and self._imu_ready():
+            R_p, t_p, v_p = self._predict_imu()
+            self.R, self.t = R_p, t_p
+            self.R_last, self.t_last = R_p, t_p
+            self.inertial.v_w = v_p
+            self.vel = None
         if feat is None or self.reloc_fn is None:
             return
         out = self.reloc_fn(self, feat)
@@ -799,6 +955,8 @@ class Tracker:
             self.ref_kf_dev = torch.full((), self.ref_kf, dtype=torch.int64,
                                          device=self.device)
             self.ref_kf_fid = int(pull(self.st.kf_frame_id[self.ref_kf]))
+        if self.inertial is not None:
+            self.inertial.prior_info = None
 
     def _need_new_kf(self, n_tracked: int, n_close_tracked: int = 10 ** 9,
                      n_close_free: int = 0) -> bool:

@@ -26,11 +26,14 @@ def resolve_device(device) -> torch.device:
 class SyncCounter:
     """Counts device->host reads that made the host wait for the device.
     `svd` counts the card's SVDs among them (ops/linalg.svd): torch's sync
-    debug mode flags each of those twice, every other counted wait once."""
+    debug mode flags each of those twice, every other counted wait once.
+    `eigh` counts the card's symmetric eigendecompositions (ops/linalg.eigh)
+    among them."""
 
     def __init__(self):
         self.count = 0
         self.svd = 0
+        self.eigh = 0
 
 
 class AsyncCounter:
@@ -80,6 +83,19 @@ class AsyncRead:
             ASYNC.ready += 1
         self.event = None
         return self.host.numpy()
+
+
+def upload(x, device, dtype=None) -> torch.Tensor:
+    """A host array (numpy or a list) on `device` without a host wait: on
+    the card it goes through pinned memory as an asynchronous copy (the
+    caching host allocator keeps the pinned buffer until the copy is done);
+    torch.as_tensor(x, device="cuda") would copy from pageable memory and
+    block."""
+    t = torch.as_tensor(x, dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 @functools.lru_cache(maxsize=256)

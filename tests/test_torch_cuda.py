@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips on a host without one (the
-last two hold the monocular initialization and the stereo depth on the card
-against the CPU). The file imports neither JAX nor the JAX package, so
-that it also runs where only PyTorch is installed:
+last four hold the monocular initialization, the stereo depth and a
+pipelined IMU_RGBD run on the card against the CPU, and a second matcher's
+track-step graph against the eager step). The file imports
+neither JAX nor the JAX package, so that it also runs where only PyTorch is
+installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -227,3 +229,134 @@ def test_stereo_depth_card_equals_cpu(dev):
     from dani_slam_tpu_torch.utils import agreement
     r = agreement.stereo_depth(dev)
     assert r["ok"], r
+
+
+def test_imu_rgbd_pipelined_card_equals_cpu(dev):
+    """System(IMU_RGBD, pipelined=True) on the card against the same run on
+    the CPU: pre-extracted features of a 1500-point world seen by a camera
+    accelerating at 1.2 m/s^2 (tests/test_inertial.py's scene), 10 Hz, 200
+    Hz IMU windows, 24 frames (the IMU initializes at frame 13): the same
+    states and initialization frame, keyframes within 1, camera centres
+    within 0.097 m and bias_g within 9.4e-3 — the JAX package's own spread
+    on this run (the `e2e-pipelined` configuration of
+    tests/test_torch_inertial_system.py) with the features moved by
+    N(0, 1e-3) px, seeds 1-12: the card's window-match kernel rounds its
+    descriptor dots to bf16, the CPU's plain version does not, and the
+    pipelined inertial run amplifies such differences. The card's run is
+    also held against itself with the track step's graph off
+    (frame_graph=False, the same function eagerly): the same states,
+    centres within 1e-4 m up to the IMU initialization."""
+    from dani_slam_tpu_torch.core import cameras
+    from dani_slam_tpu_torch.core import state as mstate
+    from dani_slam_tpu_torch.slam.inertial import make_window
+    from dani_slam_tpu_torch.slam.system import Sensor, System
+    from dani_slam_tpu_torch.utils import synthetic
+
+    accel = np.array([1.2, 0.0, 0.0])
+    spec = (accel - np.array([0.0, 0.0, -9.81])).astype(np.float32)
+
+    def run(device, frame_graph=True):
+        cam = cameras.Camera.pinhole(500.0, 500.0, 320.0, 240.0, 640, 480,
+                                     device=device)
+        sys_ = System(cam, Sensor.IMU_RGBD,
+                      caps=mstate.MapCaps(K=64, L=4096, N=256, D=64),
+                      n_features=256, enable_loop_closing=False,
+                      pipelined=True, device=device)
+        sys_.tracker.max_frames_between_kf = 4
+        sys_.tracker.frame_graph = frame_graph
+        world = synthetic.make_world(1500, desc_dim=64, seed=6)
+        states, centres, init = [], [], None
+        for i in range(24):
+            t = i / 10.0
+            C = np.array([0.0, 0.0, -10.0]) + 0.5 * accel * t * t
+            feat, _ = synthetic.render_frame(
+                world, cam, np.eye(3), -C, n_max=256, noise_px=0.3, seed=i,
+                with_depth=True, time=t)
+            win = None
+            if i:
+                n = 20
+                win = make_window(np.zeros((n, 3), np.float32),
+                                  np.tile(spec, (n, 1)),
+                                  np.full(n, 0.1 / n, np.float32),
+                                  device=device)
+            s, R, tt = sys_.track_features(feat, imu_window=win)
+            states.append(s)
+            centres.append((-R.T @ tt).cpu().numpy())
+            if init is None and sys_.tracker.inertial.initialized:
+                init = i
+        sys_.shutdown()
+        return states, np.stack(centres), init, \
+            sys_.tracker.inertial.bias_g.cpu().numpy(), sys_.n_keyframes()
+
+    sc, cc, ic, bc, kc = run(torch.device("cpu"))
+    sg, cg, ig, bg, kg = run(dev)
+    se, ce, ie, _, _ = run(dev, frame_graph=False)
+    assert se == sg and ie == ig
+    assert np.abs(ce[:ig] - cg[:ig]).max() <= 1e-4
+    assert sg == sc and ig == ic and ic is not None
+    assert abs(kg - kc) <= 1
+    d = np.linalg.norm(cg - cc, axis=1)
+    assert d.max() <= 0.097, d.round(4)
+    np.testing.assert_allclose(bg, bc, atol=9.4e-3)
+
+
+def test_track_step_graph_keeps_its_matcher(dev):
+    """The track step's CUDA graph is keyed on its matcher's identity and
+    reads the matcher's weights by address, so it keeps the matcher alive:
+    after a pipelined STEREO System and its matcher are dropped, the
+    matcher is still held, and a second System with another matcher (the
+    shipped weights, each moved by 1 % at random) captures its own graph.
+    That System's run equals the same run with the track step eager
+    (frame_graph=False, the same function): poses within 1e-5, the same
+    bindings, as the frame graph's test holds them."""
+    import copy
+    import gc
+    import weakref
+    from dani_slam_tpu_torch.core import cameras
+    from dani_slam_tpu_torch.core import state as mstate
+    from dani_slam_tpu_torch.models import lightglue
+    from dani_slam_tpu_torch.slam.system import Sensor, System
+    from dani_slam_tpu_torch.utils import synthetic
+    W, H, F, n, b = 320, 240, 300.0, 6, 0.12
+    R_gt, t_gt = synthetic.orbit_trajectory(n, radius=10.0,
+                                            angle_span=0.35 * n / 60)
+    left, right, times = synthetic.make_stereo_image_sequence(
+        [F, F, W / 2, H / 2], W, H, R_gt, t_gt, baseline=b, seed=0)
+    shipped = lightglue.load_default_matcher(W, H, device=dev).model
+
+    def matcher(seed):
+        model = copy.deepcopy(shipped)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.0 + 0.01 * torch.randn(p.shape, generator=gen)
+                       .to(dev))
+        return lightglue.MatcherState(model, W, H)
+
+    def run(m, graph):
+        cam = cameras.Camera.pinhole(F, F, W / 2, H / 2, W, H, device=dev)
+        s = System(cam, Sensor.STEREO,
+                   caps=mstate.MapCaps(K=32, L=4096, N=256, D=256),
+                   n_features=256, matcher=m, pipelined=True, device=dev)
+        s.tracker.frame_graph = graph
+        for i in range(n):
+            s.track_stereo(torch.as_tensor(left[i], device=dev),
+                           torch.as_tensor(right[i], device=dev), times[i],
+                           b)
+        s.shutdown()
+        return s.tracker.trajectory, s.tracker.last_bind
+
+    first = matcher(1)
+    held = weakref.ref(first.model)
+    run(first, True)
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert held() is not None
+    second = matcher(2)
+    (tg, bg), (te, be) = run(second, True), run(second, False)
+    assert len(tg) == len(te) == n
+    for a, c in zip(tg, te):
+        np.testing.assert_allclose(a[1], c[1], atol=1e-5)
+        np.testing.assert_allclose(a[2], c[2], atol=1e-5)
+    assert torch.equal(bg, be)

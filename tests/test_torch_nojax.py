@@ -1,13 +1,15 @@
 """The port stands alone: every module of dani_slam_tpu_torch (and
 chip_smoke.py) imports with `jax` and `dani_slam_tpu` blocked, and its entry
-points (System for the monocular, stereo and RGB-D sensors, with loop
-closing and relocalization on by default, the vocabulary, the LoopCloser,
-the KB8 camera, the official-scale nets and their checkpoint loaders, the
-settings' cameras, map loading, and the dataset runners) default to CUDA
-and raise on a host without it instead of running on the CPU; the inertial
-sensors raise NotImplementedError. The official nets and the runners also
-run there with `jax` blocked: one forward of each net on the CPU, and the
-runners' --help.
+points (System for the monocular, stereo and RGB-D sensors and for the
+inertial IMU_STEREO and IMU_RGBD, with loop closing and relocalization on
+by default, the vocabulary, the LoopCloser, the KB8 camera, the
+official-scale nets and their checkpoint loaders, the settings' cameras,
+map loading, and the dataset runners) default to CUDA and raise on a host
+without it instead of running on the CPU; IMU_MONOCULAR raises
+NotImplementedError naming ROADMAP's inertial part 2, while IMU_STEREO and
+IMU_RGBD build on the CPU when asked to. The official nets and the runners
+also run there with `jax` blocked: one forward of each net on the CPU, and
+the runners' --help.
 
 This runs in a subprocess because tests/conftest.py imports JAX into the
 test process itself.
@@ -47,6 +49,10 @@ for name, fn in (("System", lambda: System(cam)),
                                  pipelined=True)),
                  ("System(STEREO)",
                   lambda: System(cam, Sensor.STEREO, pipelined=True)),
+                 ("System(IMU_RGBD)",
+                  lambda: System(cam, Sensor.IMU_RGBD, pipelined=True)),
+                 ("System(IMU_STEREO)",
+                  lambda: System(cam, Sensor.IMU_STEREO, pipelined=True)),
                  ("Camera.pinhole",
                   lambda: cameras.Camera.pinhole(1, 1, 1, 1, 2, 2)),
                  ("Camera.kb8",
@@ -95,8 +101,8 @@ for sensor in (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO, Sensor.IMU_RGBD):
     try:
         System(cam, sensor, device="cpu")
         imu_raises[sensor.name] = False
-    except NotImplementedError:
-        imu_raises[sensor.name] = True
+    except NotImplementedError as e:
+        imu_raises[sensor.name] = "part 2" in str(e)
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                        "dani_slam_tpu")
@@ -152,7 +158,8 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
                 "models.yolo_official", "core.config", "utils.io",
                 "utils.native", "utils.timing", "examples.rgbd_tum",
                 "examples.mono_tum", "examples.stereo_kitti",
-                "examples.evaluate_ate"):
+                "examples.evaluate_ate", "ops.imu", "ops.viba",
+                "slam.inertial", "slam.inertial_mapping"):
         assert f"{PKG}.{new}" in mods
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -164,7 +171,9 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
     assert out["n"] == len(mods)
     assert out["loaded"] == []
     assert out["defaults_on"]
-    assert all(out["imu_raises"].values()), out["imu_raises"]
+    assert out["imu_raises"] == {"IMU_MONOCULAR": True,
+                                 "IMU_STEREO": False,
+                                 "IMU_RGBD": False}, out["imu_raises"]
     assert out["ran"] == {"lightglue_official": True, "yolo_official": True}
     assert len(out["helps"]) == 4 and all(out["helps"].values()), \
         out["helps"]
