@@ -119,9 +119,11 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
      60 frames as the timed pass runs them (capturing the graphs, recording
      kernel 2's arguments on a local BA before the IMU initialization,
      counting the synchronizing calls torch's sync debug mode flags in
-     every frame), a pass over the first 20 frames with the track step
-     eager (through the IMU initialization; recording kernel 1's tracking
-     calls after it, held as in phase 9), then a timed pass over all 60
+     every frame), a recording pass through the IMU initialization (the
+     track step a graph replay up to the frame before the warm-up's init
+     frame, eager for the next four frames, recording kernel 1's tracking
+     calls after the initialization, held as in phase 9), then a timed
+     pass over all 60
      frames on a fresh System (every feature-path track step a graph
      replay) with every counter set to 0 just before it and read just after:
      IMU init frame, tracked frames, keyframes, landmarks, rigid ATE (the
@@ -150,7 +152,29 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
      held to bench.py's tracked frames and keyframes and to the JAX
      package's range (MONO_IMU_TARGETS; landmarks too, where the JAX
      package's own runs fall below bench.py's 1000), both kernels held
-     against their plain versions on the recorded calls.
+     against their plain versions on the recorded calls;
+ 17. training at full width, from the port's own initialization on the
+     card: train_superpoint_v2 (batch 12, 120x120, 20 steps),
+     train_lightglue(official=True) (LightGlue 256x9, batch 16, 160x160,
+     128 keypoints, 10 steps), train_yolo(model=YoloV5Net(80, 0.33, 0.50))
+     (384x512, batch 16, 10 steps), vocab_train.build_corpus on 64 images
+     and train_vocab to 1024 words in 40 iterations: the median ms a step
+     after the first (host clock, each step's loss read back), the first
+     step's loss against the port on the CPU with the same inputs
+     (TRAIN_RTOL), whether the mean loss of the last 3 steps is below the
+     first; each model saved with the reverse converter, reloaded through
+     the port's loader and run once;
+ 18. multi-device on the one card: `python -m dani_slam_tpu_torch.parallel.
+     dryrun 4 --backend gloo` in a subprocess (a 2x2 mesh: the dp x tp
+     SuperPoint step, sharded_ba_solve, sharded_gba), then four gloo ranks
+     on cuda:0 running sharded_ba_solve at the local BA's shape (P 16 x N
+     1024 x L 2048, 512 landmarks a rank; held against the same solve in
+     one process within 1e-3 poses / 1e-2 landmarks, kernel 2 launched in
+     every rank) and sharded_gba on make_drifted_loop_state's map at
+     MapCaps() in float64 (held against the one-process solve within
+     parallel/dryrun.GBA_TOL; the float32 solves, sharded, one process and
+     two relabellings of the map, printed against it); kernel 2 held against
+     its plain version and timed on rank 0's recorded call.
 
 The line before the last is {"kernels": [...]} with each kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without CUDA, or run outside
@@ -1507,17 +1531,19 @@ def run_inertial(kind, caps, seq, host_windows, width, height, f,
     return sys_, states, init, time.perf_counter() - t0
 
 
-def inertial_pass(kind, caps, kernels, n_record=20):
+def inertial_pass(kind, caps, kernels, n_after=3):
     """Phase 14 / 15: a warm-up pass over the whole sequence in the timed
     configuration (it captures the graphs, records kernel 2's arguments on
     a local BA before the IMU initialization, and counts the synchronizing
-    calls torch's sync debug mode flags in all its frames), a pass over the
-    first n_record frames with the track step eager (through the IMU
-    initialization: it records kernel 1's tracking calls after it, which
-    in the graphed passes run inside the graph) and a timed pass over the
-    whole sequence, on fresh Systems, counters set to 0 just before the
-    timed pass and read just after; checks against bench.py's counts and
-    the JAX package's numbers."""
+    calls torch's sync debug mode flags in all its frames), a recording
+    pass through the IMU initialization — the track step a graph replay up
+    to the frame before the warm-up's init frame, eager from there for
+    n_after frames past it, so that kernel 1's tracking calls after the
+    initialization, which the graphed passes run inside the graph, pass
+    through the wrapper — and a timed pass over the whole sequence, on
+    fresh Systems, counters set to 0 just before the timed pass and read
+    just after; checks against bench.py's counts and the JAX package's
+    numbers."""
     import warnings
     import numpy as np
     import torch
@@ -1553,20 +1579,32 @@ def inertial_pass(kind, caps, kernels, n_record=20):
           f"site: {sites.most_common(12)}", flush=True)
     # kernel 1's tracking calls after the initialization (per-query radii;
     # a relocalization passes a scalar); the held one is that with the
-    # most live query rows
+    # most live query rows. Graph and eager track steps give the same
+    # poses (phase 7), so the track step turns eager one frame before the
+    # warm-up's init frame.
+    if init_w is None:
+        raise SystemExit(f"IMU {kind} warm-up pass: no IMU initialization")
     flags["imu"] = False
+    n_record = init_w + 1 + n_after
+    done = [0]
+
+    def note_and_switch(sys_):
+        note(sys_)
+        done[0] += 1
+        sys_.tracker.frame_graph = done[0] < init_w - 1
+
     with ArgRecorder(kernels, "window_match_topk2",
                      keep=lambda a: isinstance(a[6], torch.Tensor) and
                      flags["imu"], history=n_record) as wm:
         _, states_r, init_r, dt_r = run_inertial(
-            kind, caps, seq, host_windows, W, H, f, progress=note,
-            n_frames=n_record, frame_graph=False)
+            kind, caps, seq, host_windows, W, H, f, progress=note_and_switch,
+            n_frames=n_record)
     wm_args = wm.held(MIN_HELD_LIVE)
-    print(f"recording pass (track step eager): {states_r.count('OK')}/"
-          f"{n_record} tracked, IMU init at frame {init_r}, {dt_r:.2f} s, "
-          f"{len(wm.calls)} tracking calls of window_match_topk2 after it "
-          f"recorded, the held one with {int(wm_args[2].sum())} live query "
-          f"rows", flush=True)
+    print(f"recording pass (track step eager from frame {init_w - 1}): "
+          f"{states_r.count('OK')}/{n_record} tracked, IMU init at frame "
+          f"{init_r}, {dt_r:.2f} s, {len(wm.calls)} tracking calls of "
+          f"window_match_topk2 after it recorded, the held one with "
+          f"{int(wm_args[2].sum())} live query rows", flush=True)
     kernels.reset_launch_counts()
     devmod.SYNCS.count = devmod.ASYNC.ready = devmod.ASYNC.waited = 0
     sys_, states, init, dt = run_inertial(kind, caps, seq, host_windows, W,
@@ -2455,6 +2493,302 @@ def atlas_round_trip():
         raise SystemExit("atlas round trip failed")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the four trainers at full width
+# ---------------------------------------------------------------------------
+
+# first-step loss, card against CPU on the same inputs: float32 SuperPoint
+# (TF32 off: cuDNN and the CPU sum in other orders); bf16 LightGlue and
+# yolov5s round at the same places on both devices and accumulate in other
+# orders (the CPU tests' bf16 loss tolerance)
+TRAIN_RTOL = {"superpoint_v2": 1e-4, "lightglue_official": 2e-2,
+              "yolov5s": 2e-2}
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+
+
+def timed_trainer(fn, **kwargs):
+    """fn(..., on_step=...) with each step's loss read back (the read
+    waits for the step) and the host time between reads. Returns (fn's
+    result, losses, step seconds)."""
+    losses, times = [], []
+    last = [time.perf_counter()]
+
+    def on_step(i, loss):
+        losses.append(float(loss))
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+    _sync()
+    last[0] = time.perf_counter()
+    return fn(on_step=on_step, **kwargs), losses, times
+
+
+def report_trainer(name, what, losses, times, loss_cpu, out):
+    """Print a trainer's line; fail on a non-finite loss or a first-step
+    loss off the CPU's."""
+    import math
+    ms = 1e3 * statistics.median(times[1:])
+    down = statistics.mean(losses[-3:]) < losses[0]
+    rel = abs(losses[0] - loss_cpu) / abs(loss_cpu)
+    print(f"{name} ({what}): {len(losses)} steps, median {ms:.1f} ms a step "
+          f"after the first (first {1e3 * times[0]:.0f} ms), first-step "
+          f"loss card {losses[0]:.6f} / CPU {loss_cpu:.6f} (rel "
+          f"{rel:.2e}, limit {TRAIN_RTOL.get(name, 0):.0e}), last "
+          f"{losses[-1]:.6f}, mean of the last 3 below the first: {down}",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses) or \
+            rel > TRAIN_RTOL.get(name, 0.0):
+        raise SystemExit(f"{name}: non-finite loss or the first step's loss "
+                         f"off the CPU's")
+    out[name] = dict(ms=ms, first_ms=1e3 * times[0], loss0=losses[0],
+                     loss0_cpu=loss_cpu, last=losses[-1], down=down,
+                     steps=len(losses))
+
+
+def training_pass():
+    """Phase 17: train_superpoint_v2 (batch 12, 120x120, 20 steps),
+    train_lightglue(official=True) (256x9, batch 16, 160x160, 128
+    keypoints, 10 steps), train_yolo(model=YoloV5Net(80, 0.33, 0.50))
+    (384x512, batch 16, 10 steps), build_corpus on 64 images and
+    train_vocab to 1024 words in 40 iterations, each from the port's own
+    initialization on the card; each trained model saved with the reverse
+    converter, reloaded through the port's loader and run once."""
+    import numpy as np
+    import torch
+    from dani_slam_tpu_torch.models import lightglue, lightglue_official
+    from dani_slam_tpu_torch.models import lightglue_train as lt
+    from dani_slam_tpu_torch.models import superpoint
+    from dani_slam_tpu_torch.models import superpoint_train as st
+    from dani_slam_tpu_torch.models import vocab, vocab_train as vt
+    from dani_slam_tpu_torch.models import yolo_official
+    from dani_slam_tpu_torch.models import yolo_train as yt
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    out = {}
+
+    def on(device, arrays):
+        return [torch.as_tensor(a).to(device) for a in arrays]
+
+    # SuperPoint v2: the first batch of seed 0 through the seed-0 model on
+    # the CPU
+    (model, _), losses, times = timed_trainer(
+        st.train_superpoint_v2, steps=20, device="cuda")
+    batch0 = st.v2_batch(np.random.RandomState(0), 0, 12, 120, 120, 28)
+    with torch.no_grad():
+        loss_cpu = float(st.v2_loss(st.init_logits_model(0, cpu),
+                                    *on(cpu, batch0)))
+    report_trainer("superpoint_v2", "batch 12, 120x120", losses, times,
+                   loss_cpu, out)
+    path = os.path.join(TRAIN_DIR, "superpoint.npz")
+    st.save_params(path, model)
+    sp = superpoint.load_default_params("cuda", path)
+    heat, desc = superpoint.apply(sp, torch.as_tensor(
+        batch0[0][0, ..., 0], device=dev))
+    assert heat.shape == (120, 120) and bool(torch.isfinite(heat).all())
+
+    # LightGlue 256x9: the seed-0 model on the first step's inputs (the
+    # card's extraction of the first batch) on both devices
+    (model, _), losses, times = timed_trainer(
+        lt.train_lightglue, official=True, steps=10, device="cuda")
+    sp0 = superpoint.load_default_params("cuda")
+    inputs, targets = lt.pair_inputs(sp0, *on(dev, lt.make_training_batch(
+        np.random.RandomState(0), 16, 160, 160)), 128, 160, 160)
+    with torch.no_grad():
+        m_cpu = lt.make_matcher(True, 128, 6, 0)
+        loss_cpu = float(lt.matcher_loss(
+            m_cpu, *[t.cpu() for t in inputs + targets]))
+        loss_card = float(lt.matcher_loss(m_cpu.to(dev), *inputs, *targets))
+    print(f"lightglue_official first-step loss on the recomputed inputs on "
+          f"the card: {loss_card:.6f} (the trainer's: {losses[0]:.6f})",
+          flush=True)
+    report_trainer("lightglue_official", "256x9, batch 16, 160x160, 128 "
+                   "keypoints", losses, times, loss_cpu, out)
+    path = os.path.join(TRAIN_DIR, "lightglue_official.npz")
+    lt.save_params(path, model)
+    ms = lightglue_official.load_official_matcher(device="cuda", path=path)
+    idx, score, ok = lightglue.match_pair(
+        ms.model, inputs[0][0] * 80 + 80, inputs[2][0], inputs[4][0],
+        inputs[1][0] * 80 + 80, inputs[3][0], inputs[5][0], 160, 160)
+    assert bool(torch.isfinite(score).all())
+
+    # yolov5s at 384x512: the seed-0 model on the first batch on both
+    (model, _), losses, times = timed_trainer(
+        yt.train_yolo, model=yolo_official.YoloV5Net(80, 0.33, 0.50), h=384,
+        w=512, steps=10, device="cuda")
+    batch0 = yt.make_detection_batch(np.random.RandomState(0), 16, 384, 512)
+    from dani_slam_tpu_torch.models import convert
+    with torch.no_grad():
+        loss_cpu = float(yt.yolo_loss(convert.flax_init(
+            yolo_official.YoloV5Net(80, 0.33, 0.50), 0), *on(cpu, batch0),
+            80))
+    report_trainer("yolov5s", "384x512, batch 16", losses, times, loss_cpu,
+                   out)
+    path = os.path.join(TRAIN_DIR, "yolov5s.npz")
+    yt.save_detector(path, model, [0, 80, 384, 512])
+    det = yolo_official.load_official_detector("cuda", path)
+    boxes, scores, cls, valid = det.detect(torch.as_tensor(
+        batch0[0][0] * 255.0, device=dev))
+    assert bool(torch.isfinite(scores).all())
+
+    # vocabulary: the corpus of 64 textured scenes, k-means on the card
+    # against the CPU on the same corpus
+    sp = superpoint.load_default_params("cuda")
+    t0 = time.perf_counter()
+    corpus = vt.build_corpus(sp, n_images=64)
+    t_corpus = time.perf_counter() - t0
+    _sync()
+    t0 = time.perf_counter()
+    cb = vt.train_vocab(corpus, n_words=1024, iters=40, device="cuda")
+    t_kmeans = time.perf_counter() - t0
+    cb_cpu = vt.train_vocab(corpus, n_words=1024, iters=40, device="cpu")
+    fit = float(np.mean(np.max(corpus @ cb.T, -1)))
+    fit_cpu = float(np.mean(np.max(corpus @ cb_cpu.T, -1)))
+    path = os.path.join(TRAIN_DIR, "vocab.npz")
+    vt.save_vocab(path, cb)
+    cb_back = vocab.load_default_codebook(256, "cuda", path)
+    words = vocab.quantize(torch.as_tensor(corpus[:512], device=dev),
+                           torch.ones(512, dtype=torch.bool, device=dev),
+                           cb_back)
+    print(f"vocabulary: corpus of {corpus.shape[0]} descriptors from 64 "
+          f"images in {t_corpus:.2f} s, 1024 words in 40 iterations in "
+          f"{t_kmeans:.2f} s ({1e3 * t_kmeans / 40:.2f} ms an iteration), "
+          f"mean best cosine card {fit:.6f} / CPU {fit_cpu:.6f} (limit "
+          f"1e-3), {len(torch.unique(words))} words used by 512 "
+          f"descriptors after the reload", flush=True)
+    if abs(fit - fit_cpu) > 1e-3 or not np.isfinite(cb).all():
+        raise SystemExit("vocabulary: card and CPU codebooks differ")
+    out["vocab"] = dict(ms=1e3 * t_kmeans / 40, corpus_s=t_corpus,
+                        n_desc=int(corpus.shape[0]), fit=fit,
+                        fit_cpu=fit_cpu)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: multi-device, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+def _sharded_solves_rank(device, problem, iters, gba):
+    """dryrun.sharded_ba_rank, kernel 2's last arguments kept (rank 0
+    returns them), then dryrun.sharded_gba_rank(*gba) in float64 and in
+    float32: one start of the ranks for all the solves."""
+    import torch
+    import torch.distributed as dist
+    from dani_slam_tpu_torch.ops import kernels
+    from dani_slam_tpu_torch.parallel import dryrun
+    kernels.build_kernels()
+    t0 = time.perf_counter()
+    # the recorder counts the wrapper's launches while installed, and
+    # sharded_ba_rank reads them inside
+    with ArgRecorder(kernels, "lba_landmark_blocks") as rec:
+        out = dryrun.sharded_ba_rank(device, problem, iters)
+    out["ba_s"] = time.perf_counter() - t0
+    if dist.get_rank() == 0:
+        out["lba_args"] = rec.args[:3]
+    t0 = time.perf_counter()
+    out["gba"] = dryrun.sharded_gba_rank(device, *gba, torch.float64)
+    out["gba_s"] = time.perf_counter() - t0
+    out["gba32"] = dryrun.sharded_gba_rank(device, *gba)
+    return out
+
+
+def multidevice_pass(kernels):
+    """Phase 18: the dry run's command line on four gloo ranks on the card
+    (a 2x2 mesh), then sharded_ba_solve over 4 ranks at the local BA's
+    shape (P 16 x N 1024 x L 2048, 512 landmarks a rank) and sharded_gba on
+    make_drifted_loop_state's map at MapCaps(), each held against the same
+    solve in one process on the card, kernel 2's launches counted in each
+    rank; kernel 2 held and timed on a rank's recorded call."""
+    # the dry run's four processes start while the solves' four run: most
+    # of either is reaching the card
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dani_slam_tpu_torch.parallel.dryrun", "4",
+         "--backend", "gloo"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        solves = sharded_solves(kernels)
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(stdout.strip(), flush=True)
+    if proc.returncode != 0 or "dryrun_multichip ok" not in stdout:
+        raise SystemExit(f"the dry run failed:\n{stderr[-3000:]}")
+    print(f"dry run (4 ranks, gloo, cuda:0) ended "
+          f"{time.perf_counter() - t0:.1f} s after its start", flush=True)
+    return solves
+
+
+def sharded_solves(kernels):
+    """Phase 18's four ranks: sharded_ba_solve and sharded_gba held
+    against one process (multidevice_pass)."""
+    import torch
+    from dani_slam_tpu_torch.core import state as mstate
+    from dani_slam_tpu_torch.ops import ba as ba_ops
+    from dani_slam_tpu_torch.parallel import dryrun
+    from dani_slam_tpu_torch.parallel.launch import launch
+    dev = torch.device("cuda")
+    problem = dryrun.make_ba_problem(16, 1024, 2048)
+    caps = tuple(mstate.MapCaps())
+    t0 = time.perf_counter()
+    ranks = launch(_sharded_solves_rank, 4, problem, 10, (16, 0.35, caps, 10),
+                   backend="gloo", device="cuda")
+    t_ranks = time.perf_counter() - t0
+    ref = ba_ops.ba_solve(*dryrun.ba_args(problem, dev), iters=10)
+    _sync()
+    dt = max(float(torch.max(torch.abs(r["t"] - ref.t.cpu()))) for r in ranks)
+    dlm = max(float(torch.max(torch.abs(r["lm_pos"] - ref.lm_pos.cpu())))
+              for r in ranks)
+    launches = [r["launches"] for r in ranks]
+    print(f"sharded_ba_solve, 4 ranks, P 16 x N 1024 x L 2048: landmarks "
+          f"{[r['landmarks'] for r in ranks]}, cost "
+          f"{float(ranks[0]['cost']):.6g} (one process "
+          f"{float(ref.cost):.6g}), "
+          f"|dt| {dt:.2e} (limit 1e-3) |dlm| {dlm:.2e} (limit 1e-2), "
+          f"launches by rank {launches}; both sharded solves "
+          f"{t_ranks:.1f} s with the ranks' start (BA "
+          f"{max(r['ba_s'] for r in ranks):.1f} s, GBA "
+          f"{max(r['gba_s'] for r in ranks):.1f} s)", flush=True)
+    if dt > 1e-3 or dlm > 1e-2 or any(
+            la["lba_landmark_blocks"] < 1 or la["lba_plan"] != 1
+            for la in launches):
+        raise SystemExit("sharded BA: off the one-process solve, or kernel 2 "
+                         "not launched in every rank")
+
+    st, cam = dryrun.gba_map(dev, 16, 0.35, caps)
+    single64 = dryrun.single_gba(st, cam, 10, torch.float64)
+    errs = [dryrun.gba_errors(ba_ops.BAResult(*(r["gba"][k].to(dev) for k in (
+        "R", "t", "lm_pos", "obs_inlier", "cost"))), single64, st)
+        for r in ranks]
+    # the float32 solve, a finding: its _segsum cancels, so the summation
+    # order (one process, two relabellings, four ranks) moves it
+    singles = [dryrun.single_gba(st, cam, 10, relabel=k)
+               for k in (None, 1, 2)]
+    r32 = ba_ops.BAResult(*(ranks[0]["gba32"][k].to(dev) for k in (
+        "R", "t", "lm_pos", "obs_inlier", "cost")))
+
+    def off64(res):
+        return tuple(round(e, 4) for e in dryrun.gba_errors(res, single64, st))
+    print(f"sharded_gba, 4 ranks, drifted loop map (16 keyframes, "
+          f"{int(st.lm_mask.sum())} landmarks, MapCaps()), float64: cost "
+          f"{float(ranks[0]['gba']['cost']):.9g} (one process "
+          f"{float(single64.cost):.9g}), largest |dt| "
+          f"{max(e[0] for e in errs):.2e} (limit {dryrun.GBA_TOL[0]:.0e}) "
+          f"|dlm| {max(e[1] for e in errs):.2e} (limit "
+          f"{dryrun.GBA_TOL[1]:.0e}); float32: cost {float(r32.cost):.6g} "
+          f"sharded, {[round(float(x.cost), 2) for x in singles]} one "
+          f"process (table order, two relabellings); |dt|, |dlm| from the "
+          f"float64 solve: sharded {off64(r32)}, one process "
+          f"{[off64(x) for x in singles]}", flush=True)
+    if any(e[0] > dryrun.GBA_TOL[0] or e[1] > dryrun.GBA_TOL[1]
+           for e in errs):
+        raise SystemExit("sharded GBA (float64) off the one-process solve")
+    row_lm, vals, L = ranks[0]["lba_args"]
+    args = (row_lm.to(dev), vals.to(dev), L)
+    return dict(launches=launches, lba_args=args, dt=dt, dlm=dlm)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2851,6 +3185,29 @@ def main() -> int:
               f"bound {k['bound_ms']:.5f} ms ({k['bound_by']})", flush=True)
     inert["mono"] = out
 
+    phase("17. training at full width: train_superpoint_v2, "
+          "train_lightglue(official=True), train_yolo(YoloV5Net) and the "
+          "vocabulary, each saved, reloaded and run once")
+    t17 = time.perf_counter()
+    trained = training_pass()
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+
+    phase("18. multi-device: the dry run on four gloo ranks on the card, "
+          "sharded_ba_solve and sharded_gba on four ranks against one "
+          "process")
+    t18 = time.perf_counter()
+    multi = multidevice_pass(kernels)
+    multi["err2"], multi["k2"] = check_lba(kernels, timed=True,
+                                           args=multi["lba_args"])
+    multi["k2"]["launch_floor_ms"] = floor_ms
+    k = multi["k2"]
+    print(f"lba_landmark_blocks (sharded BA, rank 0 of 4): kernel "
+          f"{k['ms']:.4f} ms a call, {k['device_ms']:.4f} ms on the device "
+          f"({k['device_launches_recorded']} launches recorded), plain "
+          f"{k['plain_ms']:.4f} ms, library {k['library_ms']:.4f} ms, bound "
+          f"{k['bound_ms']:.5f} ms ({k['bound_by']})", flush=True)
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
+
     kernels_out = [
         dict(name="window_match_topk2", route="cuda",
              source="dani_slam_tpu_torch/csrc/window_match.cu",
@@ -2932,6 +3289,21 @@ def main() -> int:
              launches=la["lba_landmark_blocks"], max_abs_err=off["err2"],
              shape=f"official path (recorded call): P {row_lm.shape[0]} x N "
              f"{row_lm.shape[1]}, L {off['lba_args'][2]}", **off["k2"])]
+    row_lm = multi["lba_args"][0]
+    kernels_out.append(dict(
+        name="lba_landmark_blocks", route="cuda",
+        source="dani_slam_tpu_torch/csrc/lba_blocks.cu",
+        replaces="dani_slam_tpu/ops/pallas_kernels.py:265",
+        launches=multi["launches"][0]["lba_landmark_blocks"],
+        launches_by_rank=[la["lba_landmark_blocks"]
+                          for la in multi["launches"]],
+        max_abs_err=multi["err2"],
+        shape=f"sharded BA, rank 0 of 4 (recorded call): P "
+        f"{row_lm.shape[0]} x N {row_lm.shape[1]}, L {multi['lba_args'][2]} "
+        f"local", **multi["k2"]))
+    print("training: " + "; ".join(
+        f"{name} {v['ms']:.1f} ms a step" for name, v in trained.items()),
+        flush=True)
     print(f"official pass: {[round(x, 2) for x in off['fps']]} FPS, "
           f"{off['n_kf']} keyframes, {off['n_lm']} landmarks, ATE "
           f"{off['ate']:.4f} m; eager official match_pairs "
@@ -2953,6 +3325,8 @@ def main() -> int:
           f"median keyframe-distance error "
           f"{inert['mono']['dist_median']:.4f}", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    # again here: a long run's output may reach its reader by its end only
+    print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

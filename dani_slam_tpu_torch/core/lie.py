@@ -174,6 +174,32 @@ def se3_apply(R, t, p):
     return torch.einsum('...ij,...j->...i', R, p) + t
 
 
+def se3_to_mat(R, t):
+    """(R, t) -> 4x4 homogeneous (batch dims broadcast)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def mat_to_se3(T):
+    """4x4 homogeneous -> (R, t)."""
+    return T[..., :3, :3], T[..., :3, 3]
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Project a near-rotation matrix back onto SO(3) through its SVD,
+    U diag(1, 1, det(U V^T)) V^T (a counted host wait on the card,
+    ops/linalg.svd)."""
+    from dani_slam_tpu_torch.ops import linalg
+    U, _, Vt = linalg.svd(R)
+    D = torch.ones(R.shape[:-1], dtype=R.dtype, device=R.device)
+    D[..., 2] = torch.linalg.det(U @ Vt)
+    return U @ (D[..., None] * Vt)
+
+
 def orthonormalize(R: torch.Tensor) -> torch.Tensor:
     """Project a near-rotation back onto SO(3) via a quaternion round trip
     (f32 pose-velocity feedback otherwise amplifies det(R) drift)."""

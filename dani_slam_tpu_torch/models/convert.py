@@ -1,10 +1,18 @@
-"""Weights of the JAX package's Flax models -> this port's nn.Modules.
+"""Weights between the JAX package's Flax models and this port's
+nn.Modules, both ways.
 
 The JAX package stores parameter trees as npz files whose keys are
 '/'-joined tree paths ('params/conv1a/kernel'); `load_params` reads such a
-file by path into nested dicts of numpy arrays (a local copy of the
-reference package's npz loader — the port imports none of its code).
-Convolution kernels are HWIO there and OIHW here.
+file by path into nested dicts of numpy arrays and `save_params` writes one
+(local copies of the reference package's npz loader and saver — the port
+imports none of its code). Convolution kernels are HWIO there and OIHW
+here, dense kernels [in, out] there and [out, in] here.
+
+Each model names where its layers live in the Flax tree with a static
+method `flax_path(module_name) -> [key, ...]` and lists its bare parameters
+(rotary frequencies) in `FLAX_RAW` as (attribute, key) pairs; `from_flax`
+and `to_flax` walk every conv, dense and layer-norm module through it, so
+a checkpoint trained by the port loads in both packages.
 """
 from __future__ import annotations
 
@@ -43,6 +51,21 @@ def read_torch_checkpoint(path: str) -> dict:
     return sd
 
 
+def save_params(path: str, params: dict):
+    """Nested dicts of arrays -> npz of '/'-joined tree paths (the layout
+    the JAX package's save_params writes and load_params reads)."""
+    flat = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat["/".join(prefix + (k,))] = np.asarray(v)
+    walk(params, ())
+    np.savez_compressed(path, **flat)
+
+
 def hwio_to_oihw(kernel) -> torch.Tensor:
     """Flax conv kernel (kh, kw, in, out) -> torch (out, in, kh, kw)."""
     return torch.from_numpy(np.ascontiguousarray(
@@ -56,33 +79,6 @@ def load_conv(conv: nn.Conv2d, tree: dict):
         if conv.bias is not None:
             conv.bias.copy_(torch.from_numpy(
                 np.asarray(tree["bias"], np.float32)))
-
-
-def superpoint_from_flax(model, params: dict):
-    """Fill a models.superpoint.SuperPoint from a Flax parameter tree
-    ({'params': {'conv1a': {'kernel', 'bias'}, ...}})."""
-    p = params["params"]
-    for name, conv in model.named_children():
-        load_conv(conv, p[name])
-    return model
-
-
-def yolo_from_flax(model, params: dict):
-    """Fill a models.yolo.YoloNet from a Flax parameter tree: bias-free
-    '{name}_conv/kernel' convs (inside C3 blocks one level deeper) and the
-    biased 'head{i}' convs."""
-    p = params["params"]
-    for name, mod in model.named_modules():
-        if not isinstance(mod, nn.Conv2d):
-            continue
-        parts = name.split(".")
-        if parts[-1] == "conv":              # ConvAct 'x.conv' <- 'x_conv'
-            parts = parts[:-2] + [parts[-2] + "_conv"]
-        tree = p
-        for part in parts:
-            tree = tree[part]
-        load_conv(mod, tree)
-    return model
 
 
 def load_dense(lin: nn.Linear, tree: dict):
@@ -102,24 +98,77 @@ def load_layernorm(ln: nn.LayerNorm, tree: dict):
         ln.bias.copy_(torch.from_numpy(np.asarray(tree["bias"], np.float32)))
 
 
-def lightglue_from_flax(model, params: dict):
-    """Fill a models.lightglue.LightGlue from a Flax parameter tree
-    ({'params': {'in_proj', 'pos_freq' [2, head_dim/2], 'layer{i}':
-    {'self_attn': {'q','k','v','proj'}, 'self_mlp0a', ...}, 'final_proj0',
-    ...}}): the module paths are the tree paths, with 'layers.{i}' for
-    'layer{i}'."""
-    p = params["params"]
-    with torch.no_grad():
-        model.pos_freq.copy_(torch.from_numpy(
-            np.asarray(p["pos_freq"], np.float32)))
+def _leaves(model):
+    """(Flax path, module) of every conv, dense and layer-norm module."""
     for name, mod in model.named_modules():
-        if not isinstance(mod, nn.Linear):
-            continue
-        parts = name.split(".")
-        if parts[0] == "layers":
-            parts = [f"layer{parts[1]}"] + parts[2:]
+        if isinstance(mod, (nn.Conv2d, nn.Linear, nn.LayerNorm)):
+            yield model.flax_path(name), mod
+
+
+def from_flax(model, params: dict):
+    """Fill a model of the port from a Flax parameter tree ({'params':
+    ...}) through its flax_path / FLAX_RAW."""
+    p = params["params"]
+    for path, mod in _leaves(model):
         tree = p
-        for part in parts:
-            tree = tree[part]
-        load_dense(mod, tree)
+        for key in path:
+            tree = tree[key]
+        if isinstance(mod, nn.Conv2d):
+            load_conv(mod, tree)
+        elif isinstance(mod, nn.Linear):
+            load_dense(mod, tree)
+        else:
+            load_layernorm(mod, tree)
+    with torch.no_grad():
+        for attr, key in getattr(model, "FLAX_RAW", ()):
+            getattr(model, attr).copy_(torch.from_numpy(
+                np.asarray(p[key], np.float32)))
+    return model
+
+
+def to_flax(model) -> dict:
+    """The Flax parameter tree ({'params': ...}, numpy f32) of a model of
+    the port: the inverse of from_flax."""
+    out = {}
+
+    def arr(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+    for path, mod in _leaves(model):
+        leaf = out
+        for key in path:
+            leaf = leaf.setdefault(key, {})
+        w = arr(mod.weight)
+        if isinstance(mod, nn.Conv2d):
+            leaf["kernel"] = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+        elif isinstance(mod, nn.Linear):
+            leaf["kernel"] = np.ascontiguousarray(w.T)
+        else:
+            leaf["scale"] = w
+        if mod.bias is not None:
+            leaf["bias"] = arr(mod.bias)
+    for attr, key in getattr(model, "FLAX_RAW", ()):
+        out[key] = arr(getattr(model, attr))
+    return {"params": out}
+
+
+def flax_init(model, seed: int):
+    """Flax's default initialization, drawn from torch.Generator(seed):
+    lecun-normal kernels (a normal truncated at two standard deviations,
+    stddev sqrt(1 / fan_in) / 0.8796, fan_in = kh * kw * in for a conv, in
+    for a dense layer), zero biases, unit layer-norm scales, standard
+    normal FLAX_RAW parameters. Returns the model."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for _, mod in _leaves(model):
+            if isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+            else:
+                fan_in = mod.weight[0].numel()
+                std = (1.0 / fan_in) ** 0.5 / .87962566103423978
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
+                                      2 * std, generator=gen)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        for attr, _ in getattr(model, "FLAX_RAW", ()):
+            getattr(model, attr).normal_(generator=gen)
     return model

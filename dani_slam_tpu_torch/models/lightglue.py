@@ -148,6 +148,7 @@ class LightGlue(nn.Module):
     mask0/mask1 (B,N) bool. Output: log assignment scores (B,N0,N1) plus
     the raw matchability logits (B,N) per side.
     """
+    FLAX_RAW = (("pos_freq", "pos_freq"),)
 
     def __init__(self, dim: int = 128, depth: int = 6, heads: int = 4,
                  input_dim: int = 256):
@@ -161,6 +162,15 @@ class LightGlue(nn.Module):
         self.final_proj1 = nn.Linear(dim, dim)
         self.match0 = nn.Linear(dim, 1)
         self.match1 = nn.Linear(dim, 1)
+
+    @staticmethod
+    def flax_path(name: str) -> list:
+        """The module paths are the tree paths, with 'layers.{i}' for
+        'layer{i}'."""
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer{parts[1]}"] + parts[2:]
+        return parts
 
     def forward(self, xy0, xy1, desc0, desc1, mask0, mask1):
         d0 = self.in_proj(desc0)
@@ -195,21 +205,34 @@ class MatcherState:
 
 @functools.lru_cache(maxsize=4)
 def _load_default_model(device: torch.device, input_dim: int, dim: int,
-                        depth: int) -> LightGlue:
+                        depth: int, path: str) -> LightGlue:
     model = LightGlue(dim=dim, depth=depth, input_dim=input_dim)
-    convert.lightglue_from_flax(model, convert.load_params(WEIGHTS))
+    convert.from_flax(model, convert.load_params(path))
     return model.to(device).eval().requires_grad_(False)
 
 
 def load_default_matcher(width: int = 640, height: int = 480,
                          device="cuda", input_dim: int = 256, dim: int = 128,
-                         depth: int = 6) -> MatcherState:
+                         depth: int = 6, path: str = WEIGHTS
+                         ) -> MatcherState:
     """The shipped synthetic-homography-trained weights (read by path from
-    the JAX package's weights/ directory) in a LightGlue on `device`; the
-    module is memoized per device and read-only at inference."""
+    the JAX package's weights/ directory; or the npz at `path` that
+    lightglue_train writes) in a LightGlue on `device`; the module is
+    memoized per device and path and read-only at inference."""
     device = resolve_device(device)
-    return MatcherState(_load_default_model(device, input_dim, dim, depth),
-                        width, height)
+    return MatcherState(_load_default_model(device, input_dim, dim, depth,
+                                            path), width, height)
+
+
+def init_matcher(seed: int = 0, width: int = 640, height: int = 480,
+                 input_dim: int = 256, dim: int = 128, depth: int = 6,
+                 device="cuda") -> MatcherState:
+    """A LightGlue with Flax's initialization (convert.flax_init) drawn
+    from torch.Generator(seed), on `device` (counterpart of
+    lightglue.init_matcher, which draws from a JAX key)."""
+    model = LightGlue(dim=dim, depth=depth, input_dim=input_dim)
+    return MatcherState(convert.flax_init(model, seed).to(
+        resolve_device(device)), width, height)
 
 
 def match_pairs(model: LightGlue, xy0, desc0, mask0, xy1, desc1, mask1,

@@ -169,6 +169,7 @@ class LightGlueOfficial(nn.Module):
     (B,N) bool. Output: (scores [B,N0,N1], z0 [B,N0], z1 [B,N1]).
     compute_dtype is the dense layers' (bf16 in production, f32 for the
     converter equivalence tests, as in the JAX module)."""
+    FLAX_RAW = (("posenc_Wr", "posenc_Wr"),)
 
     def __init__(self, dim: int = 256, depth: int = 9, heads: int = 4,
                  input_dim: int = 256, compute_dtype=torch.bfloat16):
@@ -184,6 +185,17 @@ class LightGlueOfficial(nn.Module):
             CrossBlock(dim, heads, compute_dtype) for _ in range(depth))
         self.final_proj = nn.Linear(dim, dim)
         self.matchability = nn.Linear(dim, 1)
+
+    @staticmethod
+    def flax_path(name: str) -> list:
+        """The Flax tree: 'input_proj', 'self{i}': {'Wqkv', 'out_proj',
+        'ffn0', 'ffn1' (LayerNorm), 'ffn3'}, 'cross{i}': {'to_qk', 'to_v',
+        'to_out', 'ffn0', 'ffn1', 'ffn3'}, 'final_proj', 'matchability'."""
+        parts = name.split(".")
+        if parts[0] in ("self_blocks", "cross_blocks"):
+            return [parts[0].split("_")[0] + parts[1]] + \
+                [q for q in parts[2:] if q != "ffn"]
+        return parts
 
     def forward(self, xy0, xy1, desc0, desc1, mask0, mask1):
         d0 = self.input_proj(desc0)
@@ -280,46 +292,21 @@ def load_lightglue_pt(path: str, width: int = 640, height: int = 480,
                         width, height)
 
 
-def from_flax(model: LightGlueOfficial, params: dict) -> LightGlueOfficial:
-    """Fill a LightGlueOfficial from the JAX module's Flax parameter tree
-    ({'params': {'input_proj', 'posenc_Wr' [2, hd/2], 'self{i}': {'Wqkv',
-    'out_proj', 'ffn0', 'ffn1' (LayerNorm scale/bias), 'ffn3'}, 'cross{i}':
-    {'to_qk', 'to_v', 'to_out', 'ffn0', 'ffn1', 'ffn3'}, 'final_proj',
-    'matchability'}})."""
-    p = params["params"]
-    with torch.no_grad():
-        model.posenc_Wr.copy_(torch.from_numpy(
-            np.asarray(p["posenc_Wr"], np.float32)))
-    for name in ("input_proj", "final_proj", "matchability"):
-        convert.load_dense(getattr(model, name), p[name])
-    for i in range(model.depth):
-        for prefix, block, names in (
-                ("self", model.self_blocks[i], ("Wqkv", "out_proj")),
-                ("cross", model.cross_blocks[i], ("to_qk", "to_v",
-                                                  "to_out"))):
-            tree = p[f"{prefix}{i}"]
-            for name in names:
-                convert.load_dense(getattr(block, name), tree[name])
-            convert.load_dense(block.ffn.ffn0, tree["ffn0"])
-            convert.load_dense(block.ffn.ffn3, tree["ffn3"])
-            convert.load_layernorm(block.ffn.ffn1, tree["ffn1"])
-    return model
-
-
 @functools.lru_cache(maxsize=4)
-def _load_official_model(device: torch.device):
-    model = from_flax(LightGlueOfficial(), convert.load_params(WEIGHTS))
+def _load_official_model(device: torch.device, path: str):
+    model = convert.from_flax(LightGlueOfficial(), convert.load_params(path))
     return model.to(device).eval().requires_grad_(False)
 
 
 def load_official_matcher(width: int = 640, height: int = 480,
-                          device="cuda"):
+                          device="cuda", path: str = WEIGHTS):
     """The shipped reference-scale matcher (lightglue_official_synthetic.npz
     of the JAX package's weights/ directory, read by path: 256-dim x 9
-    layers trained on the synthetic homography task) as a MatcherState on
+    layers trained on the synthetic homography task; or the npz at `path`
+    that `lightglue_train --official` writes) as a MatcherState on
     `device`, or None when the file is absent. The module is memoized per
-    device and read-only at inference."""
+    device and path and read-only at inference."""
     device = resolve_device(device)
-    if not os.path.exists(WEIGHTS):
+    if not os.path.exists(path):
         return None
-    return MatcherState(_load_official_model(device), width, height)
+    return MatcherState(_load_official_model(device, path), width, height)

@@ -42,13 +42,19 @@ class SuperPoint(nn.Module):
                 cout = descriptor_dim
             setattr(self, name, nn.Conv2d(cin, cout, k, padding=k // 2))
 
+    @staticmethod
+    def flax_path(name: str) -> list:
+        return [name]
+
     def _conv(self, name, x):
         conv = getattr(self, name)
         dt = self.compute_dtype
         return F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt),
                         padding=conv.padding)
 
-    def forward(self, x: torch.Tensor):
+    def logits(self, x: torch.Tensor):
+        """gray (B,1,H,W) -> (raw 65-channel detector logits (B,65,H/8,W/8)
+        f32, desc (B,H/8,W/8,D) L2-normalized)."""
         x = x.to(self.compute_dtype)
         for stage in (("conv1a", "conv1b"), ("conv2a", "conv2b"),
                       ("conv3a", "conv3b")):
@@ -60,26 +66,38 @@ class SuperPoint(nn.Module):
 
         cPa = F.relu(self._conv("convPa", feat))
         semi = self._conv("convPb", cPa).to(torch.float32)
-        prob = torch.softmax(semi, dim=1)[:, :64]          # drop dustbin
-        B, _, Hc, Wc = prob.shape
-        heat = prob.permute(0, 2, 3, 1).reshape(B, Hc, Wc, 8, 8)
-        heat = heat.permute(0, 1, 3, 2, 4).reshape(B, Hc * 8, Wc * 8)
-
         cDa = F.relu(self._conv("convDa", feat))
         desc = self._conv("convDb", cDa).to(torch.float32).permute(0, 2, 3, 1)
         desc = desc / torch.clamp(torch.linalg.norm(desc, dim=-1,
                                                     keepdim=True), min=1e-8)
+        return semi, desc
+
+    def forward(self, x: torch.Tensor):
+        semi, desc = self.logits(x)
+        prob = torch.softmax(semi, dim=1)[:, :64]          # drop dustbin
+        B, _, Hc, Wc = prob.shape
+        heat = prob.permute(0, 2, 3, 1).reshape(B, Hc, Wc, 8, 8)
+        heat = heat.permute(0, 1, 3, 2, 4).reshape(B, Hc * 8, Wc * 8)
         return heat, desc
 
 
+def init_params(seed: int = 0, device="cuda") -> SuperPoint:
+    """A SuperPoint with Flax's initialization (lecun-normal kernels, zero
+    biases; convert.flax_init) drawn from torch.Generator(seed), on
+    `device` (counterpart of superpoint.init_params)."""
+    device = resolve_device(device)
+    return convert.flax_init(SuperPoint(), seed).to(device)
+
+
 @functools.lru_cache(maxsize=4)
-def load_default_params(device="cuda") -> SuperPoint:
+def load_default_params(device="cuda", path: str = WEIGHTS) -> SuperPoint:
     """The shipped synthetic-corner-trained weights (read by path from the
-    JAX package's weights/ directory) in a SuperPoint on `device`. Memoized
-    per device: the module is read-only at inference."""
+    JAX package's weights/ directory; or the npz at `path`, which
+    superpoint_train.save_params writes) in a SuperPoint on `device`.
+    Memoized per device and path: the module is read-only at inference."""
     device = resolve_device(device)
     model = SuperPoint()
-    convert.superpoint_from_flax(model, convert.load_params(WEIGHTS))
+    convert.from_flax(model, convert.load_params(path))
     return model.to(device).eval().requires_grad_(False)
 
 

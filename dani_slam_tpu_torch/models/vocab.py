@@ -32,14 +32,16 @@ def random_codebook(gen: torch.Generator, n_words: int = 1024,
     return c / torch.linalg.norm(c, dim=-1, keepdim=True)
 
 
-def load_default_codebook(dim: int = 256, device="cuda"):
-    """The shipped vocabulary (dani_slam_tpu/weights/superpoint_voc.npz) as
-    a [V, dim] tensor on `device`, after checking its SHA-256; None when the
-    file is absent or its width is not `dim` (synthetic-feature runs at
-    D = 64 train a live vocabulary instead)."""
+def load_default_codebook(dim: int = 256, device="cuda", path=None):
+    """The shipped vocabulary (dani_slam_tpu/weights/superpoint_voc.npz, or
+    the file at `path` that vocab_train.save_vocab writes) as a [V, dim]
+    tensor on `device`, after checking its SHA-256; None when the file is
+    absent or its width is not `dim` (synthetic-feature runs at D = 64
+    train a live vocabulary instead)."""
     from dani_slam_tpu_torch.utils.checkpoint import codebook_checksum
-    path = os.path.join(os.path.dirname(__file__), "..", "..",
-                        "dani_slam_tpu", "weights", "superpoint_voc.npz")
+    if path is None:
+        path = os.path.join(os.path.dirname(__file__), "..", "..",
+                            "dani_slam_tpu", "weights", "superpoint_voc.npz")
     if not os.path.exists(path):
         return None
     data = np.load(path)

@@ -53,6 +53,19 @@ def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
+def to_nchw(img: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) or (B, H, W, 3) -> (B, 3, H, W), a view."""
+    return (img if img.dim() == 4 else img[None]).permute(0, 3, 1, 2)
+
+
+def head_out(h: torch.Tensor, num_classes: int, batched: bool):
+    """A head conv's (B, no, H, W) -> f32 (B, H, W, 3, 5+nc), or its first
+    image (H, W, 3, 5+nc)."""
+    h = h.to(torch.float32).permute(0, 2, 3, 1)          # (B, H, W, no)
+    h = h.reshape(h.shape[:3] + (3, 5 + num_classes))
+    return h if batched else h[0]
+
+
 class ConvAct(nn.Module):
     """Bias-free conv + SiLU (the reference's `_conv_bn`, which carries no
     BatchNorm)."""
@@ -92,7 +105,8 @@ class C3Block(nn.Module):
 
 class YoloNet(nn.Module):
     """Compact YOLOv5-style detector: 3 scales x 3 anchors x (5+nc).
-    Input one image (H, W, 3) float; output [(H/s, W/s, 3, 5+nc)] f32."""
+    Input one image (H, W, 3) float, or a batch (B, H, W, 3); output
+    [(H/s, W/s, 3, 5+nc)] f32, or [(B, H/s, W/s, 3, 5+nc)]."""
 
     def __init__(self, num_classes: int = 80, width: int = 32,
                  compute_dtype=torch.bfloat16):
@@ -113,8 +127,18 @@ class YoloNet(nn.Module):
         for i, c in enumerate((4 * w, 8 * w, 16 * w)):
             setattr(self, f"head{i}", nn.Conv2d(c, no, 1))
 
+    @staticmethod
+    def flax_path(name: str) -> list:
+        """Bias-free '{name}_conv' convs (inside C3 blocks one level
+        deeper) and the biased 'head{i}' convs: ConvAct 'x.conv' <-
+        'x_conv'."""
+        parts = name.split(".")
+        if parts[-1] == "conv":
+            parts = parts[:-2] + [parts[-2] + "_conv"]
+        return parts
+
     def forward(self, img: torch.Tensor):
-        x = img.permute(2, 0, 1)[None].to(self.compute_dtype)
+        x = to_nchw(img).to(self.compute_dtype)
         x = self.c1(self.d1(self.stem(x)))
         p3 = self.c2(self.d2(x))
         p4 = self.c3(self.d3(p3))
@@ -123,9 +147,7 @@ class YoloNet(nn.Module):
         for i, p in enumerate((p3, p4, p5)):
             head = getattr(self, f"head{i}")
             h = F.conv2d(p, head.weight.to(p.dtype), head.bias.to(p.dtype))
-            h = h.to(torch.float32)[0].permute(1, 2, 0)      # (H, W, no)
-            outs.append(h.reshape(h.shape[0], h.shape[1], 3,
-                                  5 + self.num_classes))
+            outs.append(head_out(h, self.num_classes, img.dim() == 4))
         return outs
 
 
@@ -299,16 +321,17 @@ class Detector:
 
 
 @functools.lru_cache(maxsize=4)
-def load_default_detector(device="cuda") -> Detector:
+def load_default_detector(device="cuda", path: str = WEIGHTS) -> Detector:
     """The shipped synthetic-scene-trained detector (yolo_synthetic.npz,
-    read by path; its __meta__ holds width, classes, input h, w). Class 0 is
-    the movable class; score_th 0.75 as in the reference package."""
+    read by path, or the npz at `path` that yolo_train writes; its __meta__
+    holds width, classes, input h, w). Class 0 is the movable class;
+    score_th 0.75 as in the reference package."""
     device = resolve_device(device)
-    params = convert.load_params(WEIGHTS)
+    params = convert.load_params(path)
     meta = params.pop("__meta__")
     width, num_classes, ih, iw = (int(v) for v in np.asarray(meta))
     model = YoloNet(num_classes=num_classes, width=width)
-    convert.yolo_from_flax(model, params)
+    convert.from_flax(model, params)
     model = model.to(device).eval().requires_grad_(False)
     return Detector(model, input_hw=(ih, iw), dynamic_class_ids=(0,),
                     score_th=0.75)

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from dani_slam_tpu_torch.models import convert
-from dani_slam_tpu_torch.models.yolo import ANCHORS, Detector
+from dani_slam_tpu_torch.models.yolo import (ANCHORS, Detector, head_out,
+                                             to_nchw)
 from dani_slam_tpu_torch.utils.device import resolve_device
 
 WEIGHTS = os.path.join(os.path.dirname(__file__), "..", "..",
@@ -139,8 +140,20 @@ class YoloV5Net(nn.Module):
         for i, c in enumerate((ch(256), ch(512), ch(1024))):
             setattr(self, f"det{i}", nn.Conv2d(c, no, 1))
 
+    @staticmethod
+    def flax_path(name: str) -> list:
+        """Each FoldedConv's 'conv' (Bottleneck j of a C3 under 'm{j}'),
+        the heads 'det{i}': nn.Sequential 'm.<j>' <- 'm<j>'."""
+        out = []
+        parts = name.split(".")
+        for part, nxt in zip(parts, parts[1:] + [None]):
+            if part == "m" and nxt is not None and nxt.isdigit():
+                continue
+            out.append(f"m{part}" if part.isdigit() else part)
+        return out
+
     def forward(self, img: torch.Tensor):
-        x = img.permute(2, 0, 1)[None].to(self.compute_dtype)
+        x = to_nchw(img).to(self.compute_dtype)
         x = self.m2(self.m1(self.m0(x)))
         p3 = self.m4(self.m3(x))
         p4 = self.m6(self.m5(p3))
@@ -153,10 +166,8 @@ class YoloV5Net(nn.Module):
         o5 = self.m23(torch.cat([self.m21(o4), t10], dim=1))
         outs = []
         for i, p in enumerate((o3, o4, o5)):
-            h = _conv_bf16(getattr(self, f"det{i}"), p)
-            h = h.to(torch.float32)[0].permute(1, 2, 0)       # (H, W, no)
-            outs.append(h.reshape(h.shape[0], h.shape[1], 3,
-                                  5 + self.num_classes))
+            outs.append(head_out(_conv_bf16(getattr(self, f"det{i}"), p),
+                                 self.num_classes, img.dim() == 4))
         return outs
 
 
@@ -244,43 +255,24 @@ def load_yolov5_pt(path: str, input_hw=(384, 640), score_th: float = 0.4,
                     input_hw=input_hw, score_th=score_th, anchors=anchors)
 
 
-def from_flax(model: YoloV5Net, params: dict) -> YoloV5Net:
-    """Fill a YoloV5Net from the JAX module's Flax parameter tree: each
-    FoldedConv's 'conv' {'kernel' HWIO, 'bias'} (Bottleneck j of a C3 under
-    'm{j}'), the heads 'det{i}'."""
-    p = params["params"]
-    for name, mod in model.named_modules():
-        if not isinstance(mod, nn.Conv2d):
-            continue
-        tree = p
-        parts = name.split(".")
-        for part, nxt in zip(parts, parts[1:] + [None]):
-            if part == "m" and nxt is not None and nxt.isdigit():
-                continue                 # nn.Sequential 'm.<j>' <- 'm<j>'
-            if part.isdigit():
-                part = f"m{part}"
-            tree = tree[part]
-        convert.load_conv(mod, tree)
-    return model
-
-
 @functools.lru_cache(maxsize=4)
-def _load_official(device: torch.device):
-    params = convert.load_params(WEIGHTS)
+def _load_official(device: torch.device, path: str):
+    params = convert.load_params(path)
     _, nc, ih, iw = (int(v) for v in np.asarray(params.pop("__meta__")))
-    model = from_flax(YoloV5Net(num_classes=nc), params)
+    model = convert.from_flax(YoloV5Net(num_classes=nc), params)
     # synthetic scenes: class 0 is the movable class; score 0.6 is the JAX
     # package's threshold calibrated for these weights
     return Detector(model.to(device).eval().requires_grad_(False),
                     input_hw=(ih, iw), dynamic_class_ids=(0,), score_th=0.6)
 
 
-def load_official_detector(device="cuda"):
+def load_official_detector(device="cuda", path: str = WEIGHTS):
     """The shipped reference-scale detector (yolo_official_synthetic.npz of
     the JAX package's weights/ directory, read by path: yolov5s, 80-class
-    head, trained on the synthetic movable-object scenes) as a Detector on
-    `device`, or None when the file is absent. Memoized per device."""
+    head, trained on the synthetic movable-object scenes; or the npz at
+    `path` that `yolo_train --official` writes) as a Detector on `device`,
+    or None when the file is absent. Memoized per device and path."""
     device = resolve_device(device)
-    if not os.path.exists(WEIGHTS):
+    if not os.path.exists(path):
         return None
-    return _load_official(device)
+    return _load_official(device, path)

@@ -17,6 +17,15 @@ never change across LM iterations.
 The JAX package runs the LM iterations in a while_loop that stops once an
 accepted step barely moves; here the loop runs `iters` times and freezes
 the carry once that condition has held — the same result, no host sync.
+
+`reduce` (default None) is the landmark-sharded solve's hook
+(parallel/mesh.sharded_ba_solve): each rank passes its own contiguous
+range of landmarks and only the observations of those, and `reduce`
+sums a tensor over the ranks. The sums over observations and landmarks go
+through it (H_pp, g_p, the Schur blocks S and the rhs, the cost, the
+`done` test), so every rank solves the same replicated pose step and its
+own landmark step. With None the arithmetic is the single-device solve's,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -91,10 +100,11 @@ def _diag_damp(H, lam, eps):
 
 def ba_solve(R0, t0, pose_fixed, lm0, lm_valid, cam, obs_kf, obs_lm, obs_xy,
              obs_valid, obs_info=None, iters: int = 10, robust: bool = True,
-             huber_delta: float = CHI2_MONO ** 0.5) -> BAResult:
+             huber_delta: float = CHI2_MONO ** 0.5, reduce=None) -> BAResult:
     """Joint pose+landmark LM solve. R0,t0 [P,...] T_cw; pose_fixed [P];
     lm0 [L,3], lm_valid [L]; observations in keyframe-major order
-    (obs_kf == repeat(arange(P), N))."""
+    (obs_kf == repeat(arange(P), N)); reduce: the sharded solve's sum over
+    ranks (module docstring), or None."""
     P = R0.shape[0]
     L = lm0.shape[0]
     M = obs_kf.shape[0]
@@ -117,7 +127,8 @@ def ba_solve(R0, t0, pose_fixed, lm0, lm_valid, cam, obs_kf, obs_lm, obs_xy,
 
     def rho_sum(c, sel):
         v = _rho(c, delta) if robust else c
-        return torch.sum(torch.where(sel, v, torch.zeros_like(v)))
+        total = torch.sum(torch.where(sel, v, torch.zeros_like(v)))
+        return total if reduce is None else reduce(total)
 
     def lm_iter(carry):
         (R, t, lm, lam, Rp, tp, lmp, rp, Jpp, Jlp, cp, have_prev) = carry
@@ -148,6 +159,8 @@ def ba_solve(R0, t0, pose_fixed, lm0, lm_valid, cam, obs_kf, obs_lm, obs_xy,
 
         H_pp = JtJ_p.reshape(P, N, 6, 6).sum(1)
         g_p = b_p.reshape(P, N, 6).sum(1)
+        if reduce is not None:
+            H_pp, g_p = reduce(H_pp), reduce(g_p)
         vals = torch.cat([JtJ_l.reshape(P, N, 9), b_l.reshape(P, N, 3),
                           JtJ_pl.reshape(P, N, 18)], dim=-1).contiguous()
         H_ll, g_l, H_pl = kernels.lba_landmark_blocks(ids2d, vals, L, plan)
@@ -158,8 +171,11 @@ def ba_solve(R0, t0, pose_fixed, lm0, lm_valid, cam, obs_kf, obs_lm, obs_xy,
 
         W = torch.einsum('plik,lkj->plij', H_pl, Hll_inv)
         S = -torch.einsum('plik,qljk->pqij', W, H_pl)
+        Wg = torch.einsum('plij,lj->pi', W, g_l)
+        if reduce is not None:
+            S, Wg = reduce(S), reduce(Wg)
         S[ar, ar] = S[ar, ar] + H_pp
-        rhs = g_p - torch.einsum('plij,lj->pi', W, g_l)
+        rhs = g_p - Wg
         S = S * keep[:, None, None, None] * keep[None, :, None, None]
         S[ar, ar] = S[ar, ar] + fixm[:, None, None] * eye6
         rhs = rhs * keep[:, None]
@@ -175,8 +191,11 @@ def ba_solve(R0, t0, pose_fixed, lm0, lm_valid, cam, obs_kf, obs_lm, obs_xy,
         R_new = dR @ R
         t_new = torch.einsum('pij,pj->pi', dR, t) + dt
         lm_new = lm + dl
+        dl_small = torch.amax(torch.abs(dl)) < 1e-4
+        if reduce is not None:
+            dl_small = reduce((~dl_small).to(torch.float32)) == 0
         done = (better & have_prev & (torch.amax(torch.abs(dp)) < 1e-4) &
-                (torch.amax(torch.abs(dl)) < 1e-4))
+                dl_small)
         return (R_new, t_new, lm_new, lam, R, t, lm, r, Jpose, Jpt, c_base,
                 torch.ones((), dtype=torch.bool, device=dev)), done
 

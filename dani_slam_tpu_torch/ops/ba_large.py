@@ -55,10 +55,13 @@ def _segsum(vals_sorted, starts, ends):
 
 def _make_pcg_iter(pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
                    obs_valid, obs_info, P: int, L: int, M: int, N: int,
-                   cg_iters: int, robust: bool, delta: float):
+                   cg_iters: int, robust: bool, delta: float, reduce=None):
     """(lm_iter, cost_of, base_valid) of the PCG LM solve over a fixed
     observation problem; lm_iter(carry) -> carry for carry = (R, t, lm,
-    lam). Shared by ba_solve_pcg and the time-sliced ba_pcg_chunk."""
+    lam). Shared by ba_solve_pcg and the time-sliced ba_pcg_chunk. reduce:
+    the landmark-sharded solve's sum over ranks (ops/ba.py), through which
+    H_pp, g_p, the [P,6] landmark term of each CG matvec, the rhs's and
+    the cost go; None is the single-device solve, bit for bit."""
     dev = obs_xy.device
     info = torch.ones(M, device=dev) if obs_info is None else obs_info
     obs_kf = torch.where(obs_valid, obs_kf, torch.zeros_like(obs_kf)).long()
@@ -76,8 +79,9 @@ def _make_pcg_iter(pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
         r, _, _ = ba_ops._residuals(R, t, cam, lm, obs_kf, obs_lm_s, obs_xy)
         c = torch.sum(r * r, dim=-1) * info
         rho = ba_ops._rho(c, delta) if robust else c
-        return c, torch.sum(torch.where(base_valid, rho,
-                                        torch.zeros_like(rho)))
+        total = torch.sum(torch.where(base_valid, rho,
+                                      torch.zeros_like(rho)))
+        return c, total if reduce is None else reduce(total)
 
     def lm_iter(carry):
         R, t, lm, lam = carry
@@ -96,6 +100,8 @@ def _make_pcg_iter(pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
 
         H_pp = JtJ_p.reshape(P, N, 6, 6).sum(1)
         g_p = g_p_m.reshape(P, N, 6).sum(1)
+        if reduce is not None:
+            H_pp, g_p = reduce(H_pp), reduce(g_p)
         H_ll = _segsum(JtJ_l.reshape(M, 9)[perm], seg_start,
                        seg_end).reshape(L, 3, 3)
         g_l = _segsum(g_l_m[perm], seg_start, seg_end)
@@ -112,12 +118,17 @@ def _make_pcg_iter(pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
             u = torch.einsum('pnij,pi->pnj', A4, x)          # H_pl^T x
             y = _segsum(u.reshape(M, 3)[perm], seg_start, seg_end)
             z = torch.einsum('lij,lj->li', Hll_inv, y)
-            w2 = torch.einsum('pnij,pnj->pni', A4, z[olm_2d])
-            Sx = torch.einsum('pij,pj->pi', H_pp_d, x) - w2.sum(1)
+            w2 = torch.einsum('pnij,pnj->pni', A4, z[olm_2d]).sum(1)
+            if reduce is not None:
+                w2 = reduce(w2)
+            Sx = torch.einsum('pij,pj->pi', H_pp_d, x) - w2
             return Sx * keep[:, None] + x * fixed_f[:, None]
 
         hg = torch.einsum('lij,lj->li', Hll_inv, g_l)
-        rhs = g_p - torch.einsum('pnij,pnj->pni', A4, hg[olm_2d]).sum(1)
+        Ahg = torch.einsum('pnij,pnj->pni', A4, hg[olm_2d]).sum(1)
+        if reduce is not None:
+            Ahg = reduce(Ahg)
+        rhs = g_p - Ahg
         rhs = rhs * keep[:, None]
         prec = 1.0 / torch.clamp(torch.diagonal(H_pp_d, dim1=-2, dim2=-1),
                                  min=1e-8)
@@ -168,13 +179,15 @@ def _make_pcg_iter(pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
 def ba_solve_pcg(R0, t0, pose_fixed, lm0, lm_valid, cam, obs_kf, obs_lm,
                  obs_xy, obs_valid, obs_info=None, iters: int = 10,
                  cg_iters: int = 40, robust: bool = True,
-                 huber_delta: float = CHI2_MONO ** 0.5) -> ba_ops.BAResult:
+                 huber_delta: float = CHI2_MONO ** 0.5,
+                 reduce=None) -> ba_ops.BAResult:
     """ops/ba.ba_solve at map scale, same keyframe-major observation layout
-    (obs_kf == repeat(arange(P), N)); memory O(M)."""
+    (obs_kf == repeat(arange(P), N)); memory O(M). reduce as in
+    ops/ba.ba_solve (parallel/mesh.sharded_gba)."""
     P, L, M = R0.shape[0], lm0.shape[0], obs_kf.shape[0]
     lm_iter, cost_of, base_valid = _make_pcg_iter(
         pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy, obs_valid,
-        obs_info, P, L, M, M // P, cg_iters, robust, huber_delta)
+        obs_info, P, L, M, M // P, cg_iters, robust, huber_delta, reduce)
     carry = (R0, t0, lm0, torch.full((), 1e-4, device=R0.device))
     for _ in range(iters):
         carry = lm_iter(carry)

@@ -45,7 +45,8 @@ from dani_slam_tpu_torch.slam.atlas import Atlas
 from dani_slam_tpu_torch.slam import frame as frame_mod
 from dani_slam_tpu_torch.slam.frame import FrameFeatures
 from dani_slam_tpu_torch.utils import verbose
-from dani_slam_tpu_torch.utils.device import pull, resolve_device, upload
+from dani_slam_tpu_torch.utils.device import (no_tf32, pull, resolve_device,
+                                          upload)
 
 
 class Sensor(enum.Enum):
@@ -88,11 +89,7 @@ class System:
                 Sensor.STEREO: "stereo", Sensor.IMU_STEREO: "stereo",
                 Sensor.RGBD: "rgbd", Sensor.IMU_RGBD: "rgbd"}[sensor]
         self.device = resolve_device(device)
-        # f32 SLAM geometry in full precision (the JAX package sets
-        # jax_default_matmul_precision="highest"); bf16 stays only where
-        # the learned modules and the window-match kernel cast explicitly
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        no_tf32()
         if cam.device.type != self.device.type:
             raise ValueError(f"camera on {cam.device}, System on "
                              f"{self.device}")

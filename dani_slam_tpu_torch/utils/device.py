@@ -23,6 +23,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def no_tf32():
+    """f32 matmuls and convolutions in full precision on the card (the JAX
+    package sets jax_default_matmul_precision="highest"): TF32 off for
+    cuBLAS and cuDNN. bf16 stays only where a module casts explicitly."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 class SyncCounter:
     """Counts device->host reads that made the host wait for the device.
     `svd` counts the card's SVDs among them (ops/linalg.svd): torch's sync

@@ -56,7 +56,7 @@ def test_converter_round_trip():
     """Every leaf of the shipped npz lands in the module (Dense kernels
     transposed), and nothing of the module is left unset."""
     params = convert.load_params(tlg.WEIGHTS)
-    model = convert.lightglue_from_flax(tlg.LightGlue(), params)
+    model = convert.from_flax(tlg.LightGlue(), params)
     sd = model.state_dict()
     seen = set()
 

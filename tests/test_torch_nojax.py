@@ -41,6 +41,10 @@ from dani_slam_tpu_torch.examples import (evaluate_ate, mono_tum, rgbd_tum,
 from dani_slam_tpu_torch.slam import loopclosing
 from dani_slam_tpu_torch.slam.system import Sensor, System
 from dani_slam_tpu_torch.utils import checkpoint
+from dani_slam_tpu_torch.models import (lightglue_train, superpoint_train,
+                                        vocab_train, yolo_train)
+from dani_slam_tpu_torch.parallel import dryrun
+import numpy as np
 cam = cameras.Camera.pinhole(300.0, 300.0, 160.0, 120.0, 320, 240,
                              device="cpu")
 default_raises = {}
@@ -99,7 +103,21 @@ for name, fn in (("System", lambda: System(cam)),
                  ("stereo_inertial_euroc.main",
                   lambda: stereo_inertial_euroc.main(["s.yaml", "seq"])),
                  ("stereo_inertial_tum_vi.main",
-                  lambda: stereo_inertial_tum_vi.main(["s.yaml", "seq"]))):
+                  lambda: stereo_inertial_tum_vi.main(["s.yaml", "seq"])),
+                 ("superpoint.init_params",
+                  lambda: superpoint.init_params()),
+                 ("lightglue.init_matcher",
+                  lambda: lightglue.init_matcher()),
+                 ("train_superpoint_v2",
+                  lambda: superpoint_train.train_superpoint_v2(steps=0)),
+                 ("train_lightglue",
+                  lambda: lightglue_train.train_lightglue(steps=0)),
+                 ("train_yolo", lambda: yolo_train.train_yolo(steps=0)),
+                 ("train_vocab", lambda: vocab_train.train_vocab(
+                     np.ones((4, 256), np.float32), n_words=2)),
+                 ("dryrun.entry", lambda: dryrun.entry()),
+                 ("dryrun_multichip",
+                  lambda: dryrun.dryrun_multichip(2, "gloo"))):
     try:
         fn()
         default_raises[name] = False
@@ -125,11 +143,16 @@ ran = {"lightglue_official": tuple(lightglue.match_pairs(
     lg.model, xy, d, m, xy, d, m, 640, 480)[0].shape) == (1, 8)}
 det = yolo_official.load_official_detector(device="cpu")
 ran["yolo_official"] = len(det.model(torch.zeros(64, 64, 3))) == 3
+# the dry run's ranks are processes of their own: each reports what it
+# had loaded
+rank_foreign = [r["foreign_modules"] for r in
+                dryrun.dryrun_multichip(2, "gloo", device="cpu")]
 import contextlib, io
 helps = {}
 for mod in (rgbd_tum, mono_tum, stereo_kitti, evaluate_ate,
             mono_inertial_euroc, stereo_inertial_euroc,
-            stereo_inertial_tum_vi):
+            stereo_inertial_tum_vi, superpoint_train, lightglue_train,
+            yolo_train, vocab_train, dryrun):
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
@@ -143,7 +166,8 @@ defaults_on = (sig["enable_loop_closing"].default is True and
 print(json.dumps({"n": len(mods), "loaded": loaded, "defaults_on": defaults_on,
                   "cuda": torch.cuda.is_available(),
                   "default_raises": default_raises,
-                  "imu_raises": imu_raises, "ran": ran, "helps": helps}))
+                  "imu_raises": imu_raises, "ran": ran, "helps": helps,
+                  "rank_foreign": rank_foreign}))
 """
 
 
@@ -174,7 +198,11 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
                 "utils.stage_profile", "utils.viewer",
                 "examples.mono_inertial_euroc",
                 "examples.stereo_inertial_euroc",
-                "examples.stereo_inertial_tum_vi"):
+                "examples.stereo_inertial_tum_vi",
+                "models.superpoint_train", "models.lightglue_train",
+                "models.yolo_train", "models.vocab_train", "models.optim",
+                "parallel.mesh", "parallel.train", "parallel.launch",
+                "parallel.dryrun"):
         assert f"{PKG}.{new}" in mods
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -190,7 +218,8 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
                                  "IMU_STEREO": False,
                                  "IMU_RGBD": False}, out["imu_raises"]
     assert out["ran"] == {"lightglue_official": True, "yolo_official": True}
-    assert len(out["helps"]) == 7 and all(out["helps"].values()), \
+    assert len(out["helps"]) == 12 and all(out["helps"].values()), \
         out["helps"]
+    assert out["rank_foreign"] == [[], []]
     if not out["cuda"]:        # with a card the default device is usable
         assert all(out["default_raises"].values()), out["default_raises"]
