@@ -16,6 +16,13 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
      wrapper between CUDA events, median of 25 after warm-up), the device
      time of the kernel's own launches (torch.profiler) and an empty kernel
      launched the same way (the floor under any separately launched kernel);
+     kernel 3 (segment_sum) on the global BA's landmark segments of the
+     drifted loop map at parallel/dryrun.GBA_MAP's caps (M 16 x 1024, L
+     8192) and at MapCaps() (M 256 x 1024, L 32768), d 9 and 3, float32 and
+     float64: bitwise equal to its plain version and from launch to launch,
+     within 1e-6 of each landmark's terms' absolute sum of the float64 sum;
+     timed (d 3 and 9, float32) against its plain version and one
+     index_add_;
   3. drive the port's main path, the configuration bench.py runs: the
      60-frame 640x480 detector-on RGB-D sequence through System(device=
      "cuda", matcher="auto", pipelined=True) with loop closing and
@@ -36,8 +43,11 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
   4. bench.py's loop pass (loop_close_kf_latency): the drifted 16-keyframe
      loop map at MapCaps() through LoopCloser.on_keyframe, a warm-up pass,
      a timed pass and finish_gba; one loop, the loop-end error below 0.3 of
-     the drifted one and a lower mean error; then a pass timed stage by
-     stage and three stages under torch.profiler;
+     the drifted one and a lower mean error; kernel 3 launched in the timed
+     pass (counters set to 0 just before it, read just after), and
+     finish_gba's float32 GBA held to its problem solved in float64 on the
+     card (cost within 1 %, keyframes within parallel/dryrun.GBA_TOL); then
+     a pass timed stage by stage and three stages under torch.profiler;
   5. relocalization: the main path over the whole sequence, six blacked-out
      frames (image and depth zero), after which the camera is back at the
      map's start (the first frame's view for 6 frames, then the sequence
@@ -171,10 +181,12 @@ Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero:
      1024 x L 2048, 512 landmarks a rank; held against the same solve in
      one process within 1e-3 poses / 1e-2 landmarks, kernel 2 launched in
      every rank) and sharded_gba on make_drifted_loop_state's map at
-     MapCaps() in float64 (held against the one-process solve within
-     parallel/dryrun.GBA_TOL; the float32 solves, sharded, one process and
-     two relabellings of the map, printed against it); kernel 2 held against
-     its plain version and timed on rank 0's recorded call.
+     MapCaps() in float32, kernel 3 launched in every rank; the four
+     ranks' solve and the one-process float32 solves in table order and
+     two relabellings of the landmarks held to the one-process float64
+     solve (cost within 1 %, keyframes and landmarks within
+     parallel/dryrun.GBA_TOL); kernel 2 held against its plain version and
+     timed on rank 0's recorded call.
 
 The line before the last is {"kernels": [...]} with each kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without CUDA, or run outside
@@ -481,6 +493,8 @@ def check_lba(kernels, P=0, N=0, L=0, seed=0, timed=False, args=None):
         P * L * 18 * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_obs * 30 / F32_FLOPS * 1e3
+    # the plan: every id read, the permutation and the offsets written
+    plan_bytes = 2 * row_lm.numel() * 4 + (L + 1) * 4
     return err, dict(ms=ms, device_ms=dev["lba_blocks_kernel"],
                      device_launches_recorded=rec["lba_blocks_kernel"],
                      plain_ms=plain_ms, library_ms=lib_ms,
@@ -488,8 +502,106 @@ def check_lba(kernels, P=0, N=0, L=0, seed=0, timed=False, args=None):
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
                      plan_ms=plan_ms, plan_device_ms=dev["lba_plan_kernel"],
                      plan_plain_ms=plan_plain_ms,
+                     plan_bound_ms=plan_bytes / HBM_BYTES_PER_S * 1e3,
                      **({} if rel_err is None else
                         {"err_of_term_sum": rel_err}))
+
+
+def gba_segments(caps, dev):
+    """The landmark segments of the global BA's problem on the drifted
+    16-keyframe loop map at `caps` (ops/ba_large._landmark_segments over
+    loopclosing._gba_problem's live observations, as ba_solve_pcg builds
+    them), the observations' landmark ids (L where none) and the count of
+    live observations."""
+    import torch
+    from dani_slam_tpu_torch.ops import ba_large
+    from dani_slam_tpu_torch.parallel import dryrun
+    from dani_slam_tpu_torch.slam.loopclosing import _gba_problem
+    st, _ = dryrun.gba_map(dev, 16, 0.35, caps)
+    _, _, olm, _, ovalid, _ = _gba_problem(st)
+    L = st.lm_pos.shape[0]
+    olm = torch.where(ovalid, olm, torch.zeros_like(olm)).long()
+    live = ovalid & st.lm_mask[olm]
+    segs = ba_large._landmark_segments(olm, live, L)
+    ids = torch.where(live, olm, torch.full_like(olm, L))
+    return segs, ids, int(live.sum())
+
+
+def check_segment_sum(kernels, caps, timed=False):
+    """Kernel 3 against its plain version on the global BA's segments of
+    the drifted loop map at `caps`, with random values ~1e4 of either sign,
+    d = 9 (H_ll) and 3 (g_l, H_pl^T x), float32 and float64: bitwise equal
+    to the plain version and from one launch to the next, and each
+    landmark within 1e-6 of its terms' absolute sum of the float64 sum;
+    timed at d = 3 and 9 in float32 (kernel, plain version, one
+    index_add_)."""
+    import torch
+    dev = torch.device("cuda")
+    segs, ids, n_live = gba_segments(caps, dev)
+    M, L = segs[0].shape[0], segs[1].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    err, rel, vals = 0.0, 0.0, {}
+    for d in (9, 3):
+        v32 = torch.randn((M, d), generator=gen, device=dev) * 1e4
+        vals[d] = v32
+        for v in (v32, v32.double()):
+            out = kernels.segment_sum(v, *segs)
+            again = kernels.segment_sum(v, *segs)
+            ref = kernels.segment_sum_ref(v, *segs)
+            r64 = kernels.segment_sum_ref(v.double(), *segs)
+            mag = kernels.segment_sum_ref(v.double().abs(), *segs)
+            _sync()
+            same, plain = torch.equal(out, again), torch.equal(out, ref)
+            e = float(torch.max(torch.abs(out - ref)))
+            r = float(torch.max(torch.abs(out.double() - r64) /
+                                (mag + 1e-300)))
+            err, rel = max(err, e), max(rel, r)
+            ok = same and plain and r <= 1e-6
+            print(f"segment_sum M {M} (live {n_live}) x d {d}, L {L}, "
+                  f"{str(v.dtype)[6:]}: bitwise equal to the plain version "
+                  f"{plain}, two launches bitwise equal {same}, largest "
+                  f"error {r:.2e} of the terms' absolute sum of the float64 "
+                  f"sum (limit 1e-6) {'OK' if ok else 'MISMATCH'}",
+                  flush=True)
+            if not ok:
+                raise SystemExit("segment_sum disagrees with its plain "
+                                 "version")
+    if not timed:
+        return err, None
+    res = {}
+    for d in (3, 9):
+        v = vals[d]
+
+        def library():
+            # one PyTorch call for the same sums: float atomics
+            return torch.zeros((L + 1, d), device=dev).index_add_(0, ids, v)
+        ms = time_ms(lambda: kernels.segment_sum(v, *segs))
+        plain_ms = time_ms(lambda: kernels.segment_sum_ref(v, *segs))
+        lib_ms = time_ms(library)
+        dms, rec = device_ms(lambda: kernels.segment_sum(v, *segs),
+                             ("segment_sum_kernel",))
+        # bytes the sums must move: each live observation's row and its
+        # permutation entry, the segment bounds, the output; an add per
+        # live value
+        nbytes = n_live * (d * 4 + 8) + L * 16 + L * d * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_live * d / F32_FLOPS * 1e3
+        res[d] = dict(ms=ms, device_ms=dms["segment_sum_kernel"],
+                      device_launches_recorded=rec["segment_sum_kernel"],
+                      plain_ms=plain_ms, library_ms=lib_ms,
+                      bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                      err_of_term_sum=rel)
+        print(f"segment_sum L {L}, d {d}, float32: kernel {ms:.4f} ms a "
+              f"call, {dms['segment_sum_kernel']:.4f} ms on the device "
+              f"({rec['segment_sum_kernel']} launches recorded), plain "
+              f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+              f"{res[d]['bound_ms']:.5f} ms ({res[d]['bound_by']})",
+              flush=True)
+    out = dict(res[3])
+    out["d9"] = {k: res[9][k] for k in ("ms", "device_ms", "plain_ms",
+                                        "library_ms", "bound_ms")}
+    return err, out
 
 
 # ---------------------------------------------------------------------------
@@ -863,10 +975,19 @@ def loop_pass(caps):
     vocabulary, min_kf_gap 6, fixed scale), a warm-up pass, a timed pass
     (CUDA-synchronised wall time per keyframe) and finish_gba; the gates of
     tests/test_loop_reloc.py (one loop, loop-end error below 0.3 of the
-    drifted one, lower mean error)."""
+    drifted one, lower mean error); kernel 3 launched in the timed pass,
+    whose counters are set to 0 just before it; and finish_gba's float32
+    GBA held to the same problem (its snapshot) solved in float64 on the
+    card: cost within 1 %, keyframe translations within
+    parallel/dryrun.GBA_TOL."""
+    import dataclasses
     import numpy as np
     import torch
     from dani_slam_tpu_torch.core import cameras
+    from dani_slam_tpu_torch.ops import ba as ba_ops
+    from dani_slam_tpu_torch.ops import kernels
+    from dani_slam_tpu_torch.parallel import dryrun
+    from dani_slam_tpu_torch.slam import loopclosing as lcm
     from dani_slam_tpu_torch.slam.loopclosing import LoopCloser
     from dani_slam_tpu_torch.utils import device as devmod
     from dani_slam_tpu_torch.utils.synthetic import make_drifted_loop_state
@@ -901,10 +1022,40 @@ def loop_pass(caps):
         return lc, st, ms, 1e3 * (time.perf_counter() - t1)
 
     run()
+    # the timed pass records the GBA's snapshot and its last carry
+    rec, chunk = {}, lcm.gba_chunk
+
+    def recording(snap, cam_, carry, iters=2):
+        rec.setdefault("snap", snap)
+        rec["carry"] = chunk(snap, cam_, carry, iters=iters)
+        rec["iters"] = rec.get("iters", 0) + iters
+        return rec["carry"]
+    lcm.gba_chunk = recording
     devmod.SYNCS.count = devmod.ASYNC.ready = devmod.ASYNC.waited = 0
-    lc, st, ms, fin_ms = run()
+    kernels.reset_launch_counts()
+    try:
+        lc, st, ms, fin_ms = run()
+    finally:
+        lcm.gba_chunk = chunk
+    launches = kernels.launch_counts()
     syncs, waited = devmod.SYNCS.count, devmod.ASYNC.waited
     before, after = errs(st0), errs(st)
+    # finish_gba's float32 GBA against the same problem in float64
+    snap = rec["snap"]
+    R, t, lm, _ = rec["carry"]
+    g32 = dryrun.single_gba(dataclasses.replace(snap, kf_R=R, kf_t=t,
+                                                lm_pos=lm), cam, 0)
+    g32 = ba_ops.BAResult(R, t, lm, None, g32.cost)
+    g64 = dryrun.single_gba(snap, cam, rec["iters"], torch.float64)
+    gba_dt, gba_dlm = dryrun.gba_errors(g32, g64, snap)
+    c32, c64 = float(g32.cost), float(g64.cost)
+    print(f"finish_gba's GBA ({rec['iters']} iterations, float32) against "
+          f"the same problem in float64 on the card: cost {c32:.6g} / "
+          f"{c64:.9g} ({abs(c32 - c64) / c64:.2e} off, limit 1e-2), "
+          f"keyframe translations within {gba_dt:.2e} m (limit "
+          f"{dryrun.GBA_TOL[0]:.0e}), landmarks seen twice within "
+          f"{gba_dlm:.2e} m; kernel launches in the timed pass {launches}",
+          flush=True)
     print(f"loop pass (timed, after a warm-up pass): n_loops {lc.n_loops}, "
           f"median {statistics.median(ms):.2f} ms/keyframe, max "
           f"{max(ms):.2f} ms (keyframe {int(np.argmax(ms)) + 1}), "
@@ -918,12 +1069,17 @@ def loop_pass(caps):
     checks = {"n_loops == 1": lc.n_loops == 1,
               "loop end < 0.3 x drifted": after[-1] < 0.3 * before[-1],
               "mean error lower": after.mean() < before.mean(),
-              "finite": bool(np.all(np.isfinite(after)))}
+              "finite": bool(np.all(np.isfinite(after))),
+              "segment_sum launched": launches["segment_sum"] > 0,
+              "GBA cost within 1 % of float64": abs(c32 - c64) <= 1e-2 * c64,
+              "GBA keyframes within GBA_TOL of float64":
+              gba_dt <= dryrun.GBA_TOL[0]}
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"loop-pass checks failed: {failed}")
     return dict(median_ms=statistics.median(ms), max_ms=max(ms),
-                finish_ms=fin_ms, syncs=syncs)
+                finish_ms=fin_ms, syncs=syncs, launches=launches,
+                gba_cost=(c32, c64), gba_err=(gba_dt, gba_dlm))
 
 
 def loop_stages(cam, st0, kf_ids, run):
@@ -2669,8 +2825,8 @@ def training_pass():
 
 def _sharded_solves_rank(device, problem, iters, gba):
     """dryrun.sharded_ba_rank, kernel 2's last arguments kept (rank 0
-    returns them), then dryrun.sharded_gba_rank(*gba) in float64 and in
-    float32: one start of the ranks for all the solves."""
+    returns them), then dryrun.sharded_gba_rank(*gba) (float32) with the
+    rank's kernel launches: one start of the ranks for both solves."""
     import torch
     import torch.distributed as dist
     from dani_slam_tpu_torch.ops import kernels
@@ -2685,9 +2841,10 @@ def _sharded_solves_rank(device, problem, iters, gba):
     if dist.get_rank() == 0:
         out["lba_args"] = rec.args[:3]
     t0 = time.perf_counter()
-    out["gba"] = dryrun.sharded_gba_rank(device, *gba, torch.float64)
+    kernels.reset_launch_counts()
+    out["gba"] = dryrun.sharded_gba_rank(device, *gba)
+    out["gba_launches"] = kernels.launch_counts()
     out["gba_s"] = time.perf_counter() - t0
-    out["gba32"] = dryrun.sharded_gba_rank(device, *gba)
     return out
 
 
@@ -2695,9 +2852,13 @@ def multidevice_pass(kernels):
     """Phase 18: the dry run's command line on four gloo ranks on the card
     (a 2x2 mesh), then sharded_ba_solve over 4 ranks at the local BA's
     shape (P 16 x N 1024 x L 2048, 512 landmarks a rank) and sharded_gba on
-    make_drifted_loop_state's map at MapCaps(), each held against the same
-    solve in one process on the card, kernel 2's launches counted in each
-    rank; kernel 2 held and timed on a rank's recorded call."""
+    make_drifted_loop_state's map at MapCaps() in float32, each held
+    against the same solve in one process on the card (the GBA, and the
+    one-process float32 GBA in table order and two relabellings of the
+    landmarks, against the one-process float64 solve: cost within 1 %,
+    keyframes and landmarks within dryrun.GBA_TOL), kernel 2's and kernel
+    3's launches counted in each rank; kernel 2 held and timed on a rank's
+    recorded call."""
     # the dry run's four processes start while the solves' four run: most
     # of either is reaching the card
     t0 = time.perf_counter()
@@ -2758,32 +2919,32 @@ def sharded_solves(kernels):
 
     st, cam = dryrun.gba_map(dev, 16, 0.35, caps)
     single64 = dryrun.single_gba(st, cam, 10, torch.float64)
-    errs = [dryrun.gba_errors(ba_ops.BAResult(*(r["gba"][k].to(dev) for k in (
-        "R", "t", "lm_pos", "obs_inlier", "cost"))), single64, st)
-        for r in ranks]
-    # the float32 solve, a finding: its _segsum cancels, so the summation
-    # order (one process, two relabellings, four ranks) moves it
-    singles = [dryrun.single_gba(st, cam, 10, relabel=k)
-               for k in (None, 1, 2)]
-    r32 = ba_ops.BAResult(*(ranks[0]["gba32"][k].to(dev) for k in (
-        "R", "t", "lm_pos", "obs_inlier", "cost")))
-
-    def off64(res):
-        return tuple(round(e, 4) for e in dryrun.gba_errors(res, single64, st))
-    print(f"sharded_gba, 4 ranks, drifted loop map (16 keyframes, "
-          f"{int(st.lm_mask.sum())} landmarks, MapCaps()), float64: cost "
-          f"{float(ranks[0]['gba']['cost']):.9g} (one process "
-          f"{float(single64.cost):.9g}), largest |dt| "
-          f"{max(e[0] for e in errs):.2e} (limit {dryrun.GBA_TOL[0]:.0e}) "
-          f"|dlm| {max(e[1] for e in errs):.2e} (limit "
-          f"{dryrun.GBA_TOL[1]:.0e}); float32: cost {float(r32.cost):.6g} "
-          f"sharded, {[round(float(x.cost), 2) for x in singles]} one "
-          f"process (table order, two relabellings); |dt|, |dlm| from the "
-          f"float64 solve: sharded {off64(r32)}, one process "
-          f"{[off64(x) for x in singles]}", flush=True)
-    if any(e[0] > dryrun.GBA_TOL[0] or e[1] > dryrun.GBA_TOL[1]
-           for e in errs):
-        raise SystemExit("sharded GBA (float64) off the one-process solve")
+    c64 = float(single64.cost)
+    fields = ("R", "t", "lm_pos", "obs_inlier", "cost")
+    solves = {f"rank {i} of 4": ba_ops.BAResult(
+        *(r["gba"][k].to(dev) for k in fields)) for i, r in enumerate(ranks)}
+    for name, k in (("one process", None), ("relabelled 1", 1),
+                    ("relabelled 2", 2)):
+        solves[name] = dryrun.single_gba(st, cam, 10, relabel=k)
+    rows, bad = [], []
+    for name, res in solves.items():
+        c = float(res.cost)
+        dt_, dl_ = dryrun.gba_errors(res, single64, st)
+        rows.append(f"{name} {c:.6g} ({abs(c - c64) / c64:.1e} off), |dt| "
+                    f"{dt_:.2e} |dlm| {dl_:.2e}")
+        if not (res.t.dtype == torch.float32 and abs(c - c64) <= 1e-2 * c64
+                and dt_ <= dryrun.GBA_TOL[0] and dl_ <= dryrun.GBA_TOL[1]):
+            bad.append(name)
+    gba_launches = [r["gba_launches"]["segment_sum"] for r in ranks]
+    print(f"sharded_gba, drifted loop map (16 keyframes, "
+          f"{int(st.lm_mask.sum())} landmarks, MapCaps()), 10 iterations "
+          f"in float32 against one process in float64 (cost {c64:.9g}; "
+          f"limits: cost 1e-2, |dt| {dryrun.GBA_TOL[0]:.0e}, |dlm| "
+          f"{dryrun.GBA_TOL[1]:.0e}): " + "; ".join(rows) +
+          f"; segment_sum launches by rank {gba_launches}", flush=True)
+    if bad or min(gba_launches) < 1:
+        raise SystemExit(f"float32 GBA off the float64 solve ({bad}), or "
+                         f"kernel 3 not launched in every rank")
     row_lm, vals, L = ranks[0]["lba_args"]
     args = (row_lm.to(dev), vals.to(dev), L)
     return dict(launches=launches, lba_args=args, dt=dt, dlm=dlm)
@@ -2855,6 +3016,12 @@ def main() -> int:
                                       True, radius=3.0)
     err2, k2 = check_lba(kernels, 16, 1024, 2048, 0, True)
     err2b, _ = check_lba(kernels, 16, 1000, 1000, 1, False)
+    # kernel 3 at both GBA shapes: the dry run's and the tests' map
+    # (M 16 x 1024, L 8192) and phase 4's MapCaps() (M 256 x 1024, L 32768)
+    from dani_slam_tpu_torch.parallel import dryrun
+    err3b, _ = check_segment_sum(kernels, mstate.MapCaps(*dryrun.GBA_MAP[2]))
+    err3, k3 = check_segment_sum(kernels, mstate.MapCaps(), True)
+    err3 = max(err3, err3b)
     _sync()
     floor_ms = time_ms(kernels.launch_floor)
     floor_dev = device_ms(kernels.launch_floor,
@@ -2865,7 +3032,8 @@ def main() -> int:
     for name, k in (("window_match_topk2", k1),
                     ("window_match_topk2 (relocalization, 10 px)", k1r),
                     ("window_match_topk2 (relocalization, 3 px)", k1r3),
-                    ("lba_landmark_blocks", k2)):
+                    ("lba_landmark_blocks", k2),
+                    ("segment_sum (d 3; d 9 below)", k3)):
         k["launch_floor_ms"] = floor_ms
         print(f"{name}: kernel {k['ms']:.4f} ms a call, {k['device_ms']:.4f} "
               f"ms on the device ({k['device_launches_recorded']} launches "
@@ -2971,6 +3139,7 @@ def main() -> int:
     phase("4. loop pass: bench.py's loop_close_kf_latency on the drifted "
           "16-keyframe loop map at MapCaps()")
     lp = loop_pass(caps)
+    k3["launches_per_finish_gba"] = lp["launches"]["segment_sum"]
 
     phase("5. relocalization: the main path, six blacked-out frames, then "
           "back at the map's start")
@@ -2992,7 +3161,9 @@ def main() -> int:
           f"ATE {ate_o:.4f} m, launches {old_launches}", flush=True)
     if n_ok_o < n_old - 2 or so.n_keyframes() < 2 or \
             so.n_landmarks() < 500 or \
-            ate_o >= 0.25 or min(old_launches.values()) <= 0 or \
+            ate_o >= 0.25 or min(old_launches[k] for k in (
+                "window_match_topk2", "lba_landmark_blocks",
+                "lba_plan")) <= 0 or \
             old_launches["window_match_topk2"] != n_old - 1:
         raise SystemExit("earlier-path checks failed")
 
@@ -3228,6 +3399,26 @@ def main() -> int:
              replaces="dani_slam_tpu/ops/pallas_kernels.py:265",
              launches=launches["lba_landmark_blocks"], max_abs_err=err2,
              **k2),
+        dict(name="lba_plan", route="cuda",
+             source="dani_slam_tpu_torch/csrc/lba_blocks.cu",
+             replaces="dani_slam_tpu/ops/pallas_kernels.py:265",
+             note="the fixed-order reduction plan of lba_landmark_blocks, "
+             "once per local BA solve; exactly equal to its plain version",
+             launches=launches["lba_plan"], max_abs_err=0.0,
+             ms=k2["plan_ms"], device_ms=k2["plan_device_ms"],
+             plain_ms=k2["plan_plain_ms"], bound_ms=k2["plan_bound_ms"],
+             bound_by="bytes", library_ms=None,
+             shape="P 16 x N 1024, L 2048"),
+        dict(name="segment_sum", route="cuda",
+             source="dani_slam_tpu_torch/csrc/segment_sum.cu",
+             replaces="dani_slam_tpu/ops/ba_large.py:66",
+             note="no TPU kernel: the JAX package's _segsum there is plain "
+             "XLA (differences of a running sum); the port's per-landmark "
+             "sums of the map-scale BAs, bitwise equal to the plain version",
+             launches=lp["launches"]["segment_sum"], max_abs_err=err3,
+             shape="loop pass's GBA segments at MapCaps(): M 256 x 1024, "
+             "L 32768, d 3 float32 (d 9: the d9 entry); launches: phase 4's "
+             "timed loop pass (finish_gba)", **k3),
     ]
     for kind, out in sensor.items():
         q, r = out["wm_args"][0], out["wm_args"][6]

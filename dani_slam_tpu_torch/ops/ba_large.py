@@ -6,17 +6,20 @@ The explicit Schur solve of ops/ba.py needs a dense [P, L, 6, 3] H_pl, which
 at the default capacities (K 256, L 32768) is terabytes. Here the reduced
 camera system is never formed: CG needs only S x, which factors into
 per-observation products with the sparse H_pl blocks A_m [6, 3].
-Landmark-indexed sums (H_ll, g_l, H_pl^T x) follow the reference's
-arithmetic — observations sorted by landmark once per problem, segment sums
-as differences of an f32 cumulative sum, cs[end] - cs[start]. Over hundreds
-of thousands of observations those differences lose low-order bits to
-cancellation, in the reference and on the card alike (PyTorch's CPU
-cumulative sum accumulates f32 in f64 and loses fewer); for landmarks seen
-from one or two keyframes, whose H_ll is nearly singular, those bits
-decide the step. Pose-indexed sums are keyframe-major reshape-sums.
-full_inertial_ba is the whole-map visual-inertial variant: 15-DoF keyframe
-states, the inertial chain and bias priors inside the CG matvec, H_ll and
-g_l through the same _segsum (so the same cancellation).
+Landmark-indexed sums (H_ll, g_l, H_pl^T x) go through kernels.segment_sum
+over the observations sorted by landmark once per problem: each landmark's
+terms are added directly, in an order the segment bounds fix. The JAX
+package forms them as differences of one f32 cumulative sum, cs[end] -
+cs[start]; at map scale that running sum reaches ~1e8 against a
+landmark's ~1e4, the differences keep few of the block's bits, and for
+landmarks seen from one or two keyframes, whose H_ll is nearly singular,
+those bits decide the step (PERF.md: the float32 solve of the drifted loop
+map moved by decimetres under any change of summation order). Here the
+float32 solve stays within 1 % of the float64 cost. Pose-indexed sums are
+keyframe-major reshape-sums. full_inertial_ba is the whole-map
+visual-inertial variant: 15-DoF keyframe states, the inertial chain and
+bias priors inside the CG matvec, H_ll and g_l through the same segment
+sums.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 
 from dani_slam_tpu_torch.core import lie
 from dani_slam_tpu_torch.ops import ba as ba_ops
+from dani_slam_tpu_torch.ops import kernels
 
 CHI2_MONO = 5.991
 
@@ -41,16 +45,13 @@ def _landmark_segments(obs_lm, valid, L: int):
     return perm, starts, ends
 
 
-def _segsum(vals_sorted, starts, ends):
-    """Per-landmark sums of pre-sorted values [M, d] -> [L, d] as
-    differences of an exclusive cumulative sum. The scan runs along the
-    contiguous dimension of the transposed values: on CUDA a cumulative
-    sum along dim 0 of an [M, d] tensor with small d is d sequential scans
-    of M elements, along the last dim one parallel scan per row (PERF.md,
-    PR 4, has the times)."""
-    cs = torch.cumsum(vals_sorted.t().contiguous(), dim=1)
-    cs = torch.cat([torch.zeros_like(cs[:, :1]), cs], dim=1).t()
-    return cs[ends] - cs[starts]
+def _lm_sum(vals, segs):
+    """Per-landmark sums [L, d] of per-observation values (any shape of M
+    observations, flattened to [M, d]) over the segments (perm [M], starts,
+    ends) of _landmark_segments: kernels.segment_sum, which gathers
+    through perm."""
+    return kernels.segment_sum(
+        vals.reshape(segs[0].shape[0], -1).contiguous(), *segs)
 
 
 def _make_pcg_iter(pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
@@ -68,7 +69,7 @@ def _make_pcg_iter(pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
     obs_lm_s = torch.where(obs_valid, obs_lm,
                            torch.zeros_like(obs_lm)).long()
     base_valid = obs_valid & lm_valid[obs_lm_s]
-    perm, seg_start, seg_end = _landmark_segments(obs_lm_s, base_valid, L)
+    segs = _landmark_segments(obs_lm_s, base_valid, L)
     olm_2d = obs_lm_s.reshape(P, N)
     keep = (~pose_fixed).to(torch.float32)
     fixed_f = pose_fixed.to(torch.float32)
@@ -102,9 +103,8 @@ def _make_pcg_iter(pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
         g_p = g_p_m.reshape(P, N, 6).sum(1)
         if reduce is not None:
             H_pp, g_p = reduce(H_pp), reduce(g_p)
-        H_ll = _segsum(JtJ_l.reshape(M, 9)[perm], seg_start,
-                       seg_end).reshape(L, 3, 3)
-        g_l = _segsum(g_l_m[perm], seg_start, seg_end)
+        H_ll = _lm_sum(JtJ_l, segs).reshape(L, 3, 3)
+        g_l = _lm_sum(g_l_m, segs)
 
         H_pp_d = H_pp + lam * torch.diag_embed(
             torch.diagonal(H_pp, dim1=-2, dim2=-1)) + 1e-8 * eye6
@@ -116,7 +116,7 @@ def _make_pcg_iter(pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
         def matvec(x):                       # x [P,6] -> S x (gauge-masked)
             x = x * keep[:, None]
             u = torch.einsum('pnij,pi->pnj', A4, x)          # H_pl^T x
-            y = _segsum(u.reshape(M, 3)[perm], seg_start, seg_end)
+            y = _lm_sum(u, segs)
             z = torch.einsum('lij,lj->li', Hll_inv, y)
             w2 = torch.einsum('pnij,pnj->pni', A4, z[olm_2d]).sum(1)
             if reduce is not None:
@@ -154,7 +154,7 @@ def _make_pcg_iter(pose_fixed, lm_valid, cam, obs_kf, obs_lm, obs_xy,
         dp = x * keep[:, None]
 
         u = torch.einsum('pnij,pi->pnj', A4, dp)
-        y = _segsum(u.reshape(M, 3)[perm], seg_start, seg_end)
+        y = _lm_sum(u, segs)
         dl = -torch.einsum('lij,lj->li', Hll_inv, g_l + y)
         dl = torch.where(lm_valid[:, None], dl, torch.zeros_like(dl))
 
@@ -246,7 +246,7 @@ def full_inertial_ba(R0, t0, v0, bg0, ba0, pose_fixed, lm0, lm_valid, cam,
     ovalid_flat = (obs_valid & (obs_lm >= 0)).reshape(-1)
     oxy_flat = obs_xy.reshape(-1, 2)
     base_valid = ovalid_flat & lm_valid[olm_flat]
-    perm, seg_start, seg_end = _landmark_segments(olm_flat, base_valid, L)
+    segs = _landmark_segments(olm_flat, base_valid, L)
     olm_2d = olm_flat.reshape(P, N)
     edge_W = imu_ops.edge_information(preints, calib,
                                       diag_only=not full_info)
@@ -291,9 +291,8 @@ def full_inertial_ba(R0, t0, v0, bg0, ba0, pose_fixed, lm0, lm_valid, cam,
         g_l_m = torch.einsum('mik,m,mi->mk', Jpt, w, r)
         H_pp = JtJ_p.reshape(P, N, 6, 6).sum(1)
         g_p6 = g_p_m.reshape(P, N, 6).sum(1)
-        H_ll = _segsum(JtJ_l.reshape(M, 9)[perm], seg_start,
-                       seg_end).reshape(L, 3, 3)
-        g_l = _segsum(g_l_m[perm], seg_start, seg_end)
+        H_ll = _lm_sum(JtJ_l, segs).reshape(L, 3, 3)
+        g_l = _lm_sum(g_l_m, segs)
         H_ll_d = H_ll + (lam * torch.diag_embed(
             torch.diagonal(H_ll, dim1=-2, dim2=-1)) + 1e-8 * eye3)
         Hll_inv = ba_ops._inv3x3(H_ll_d)
@@ -328,7 +327,7 @@ def full_inertial_ba(R0, t0, v0, bg0, ba0, pose_fixed, lm0, lm_valid, cam,
             x = x * keep
             x6 = x[:, :6]
             u = torch.einsum('pnij,pi->pnj', A4, x6)
-            y = _segsum(u.reshape(M, 3)[perm], seg_start, seg_end)
+            y = _lm_sum(u, segs)
             z = torch.einsum('lij,lj->li', Hll_inv, y)
             w2 = torch.einsum('pnij,pnj->pni', A4, z[olm_2d]).sum(1)
             Sx6 = torch.einsum('pij,pj->pi', H_pp, x6) - w2
@@ -363,7 +362,7 @@ def full_inertial_ba(R0, t0, v0, bg0, ba0, pose_fixed, lm0, lm_valid, cam,
         dx = x * keep
 
         u = torch.einsum('pnij,pi->pnj', A4, dx[:, :6])
-        y = _segsum(u.reshape(M, 3)[perm], seg_start, seg_end)
+        y = _lm_sum(u, segs)
         dl = -torch.einsum('lij,lj->li', Hll_inv, g_l + y)
         dl = torch.where(lm_valid[:, None], dl, torch.zeros_like(dl))
 

@@ -5,6 +5,9 @@
   lba_landmark_blocks  <- pallas_kernels.lba_landmark_blocks (csrc/lba_blocks.cu)
   lba_plan             the fixed-order reduction plan of lba_landmark_blocks,
                        built on the device without a sort (csrc/lba_blocks.cu)
+  segment_sum          the per-landmark sums of the map-scale BAs
+                       (ops/ba_large.py), in a fixed order; no TPU kernel
+                       (csrc/segment_sum.cu)
 
 window_match_topk2 is bound by operations on an H100 (1.6 GFLOP of bf16
 products against 4 MB at the main-path shape), so its dot runs on the tensor
@@ -22,7 +25,12 @@ with a fixed summation order (`lba_plan`: integer histogram, scan, fill,
 rank — no sort, no float atomics), keeps several observations' loads in
 flight, and writes all of H_pl once; it agrees with its plain version
 within rtol/atol 1e-5 (another summation order) and is bitwise repeatable.
-The source note at the head of each .cu file gives the design in full.
+segment_sum is bound by bytes too (a gather of each live observation's row
+through the landmark order); one warp per landmark adds lane-strided
+partial sums and combines them in a fixed butterfly, in float32 or
+float64, and its plain version adds in the same order: the two are
+bitwise equal. The source note at the head of each .cu file gives the
+design in full.
 
 Each CUDA source is compiled at first use with nvcc for sm_90a into a shared
 library with a plain C interface under build/kernels/ (one nvcc per source,
@@ -53,10 +61,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = {"window_match": "window_match.cu", "lba_blocks": "lba_blocks.cu",
-           "launch_floor": "launch_floor.cu"}
+           "segment_sum": "segment_sum.cu", "launch_floor": "launch_floor.cu"}
 MAX_D = 256           # descriptor depth window_match.cu holds in shared memory
 MAX_P = 128           # keyframe rows lba_blocks.cu stages in shared memory
 MAX_L = 25000         # histogram bins lba_plan's kernel holds in shared memory
+MAX_SEG_D = 16        # channels segment_sum.cu keeps in registers
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -77,6 +86,7 @@ def _nvcc() -> str:
 def _bind(name: str, lib: ctypes.CDLL) -> dict:
     """The C entry points of one library, by function name."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     if name == "window_match":
         sigs = {"window_match_topk2_launch":
                 ([vp] * 4 + [f] + [vp] * 3 + [i, i, i] + [vp] * 6,
@@ -86,6 +96,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> dict:
         sigs = {"lba_landmark_blocks_launch":
                 ([vp] * 3 + [i, i, i] + [vp] * 4, ctypes.c_int),
                 "lba_plan_launch": ([vp, i, i, i] + [vp] * 4, ctypes.c_int)}
+    elif name == "segment_sum":
+        sigs = {"segment_sum_launch": ([vp] * 4 + [ll, i, i, i, vp, vp],
+                                       ctypes.c_int)}
     else:
         sigs = {"launch_floor_launch": ([vp], ctypes.c_int)}
     fns = {}
@@ -179,13 +192,15 @@ def _stream(device: torch.device) -> int:
 def launch_counts() -> dict:
     return {"window_match_topk2": window_match_topk2.launches,
             "lba_landmark_blocks": lba_landmark_blocks.launches,
-            "lba_plan": lba_plan.launches}
+            "lba_plan": lba_plan.launches,
+            "segment_sum": segment_sum.launches}
 
 
 def reset_launch_counts():
     window_match_topk2.launches = 0
     lba_landmark_blocks.launches = 0
     lba_plan.launches = 0
+    segment_sum.launches = 0
 
 
 def launch_floor():
@@ -473,3 +488,75 @@ def lba_landmark_blocks(row_lm, vals, L: int, plan):
 
 
 lba_landmark_blocks.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: the map-scale BAs' per-landmark segment sum
+# ---------------------------------------------------------------------------
+
+SEG_LANES = 32        # the lanes of one warp, which stride a segment
+
+
+def segment_sum_ref(vals, perm, starts, ends):
+    """Plain PyTorch version of segment_sum, in the kernel's order: lane j
+    (of 32) adds the terms starts[l] + j, + j + 32, ... one after the
+    other, then the lanes combine in a butterfly (lane i + lane i + 16,
+    then + 8, 4, 2, 1). The two give the same bits. Lanes that no segment
+    reaches hold exact zeros and are left out (adding them changes no
+    bit), so a map whose segments have at most w terms works on w lanes
+    (the next power of two)."""
+    L, d = starts.shape[0], vals.shape[1]
+    M = perm.shape[0]
+    s = starts.clamp(0, M)
+    e = torch.maximum(ends.clamp(max=M), s)
+    n_max = int((e - s).max()) if L else 0
+    w = 1
+    while w < min(n_max, SEG_LANES):
+        w *= 2
+    lanes = torch.arange(w, device=vals.device)
+    acc = torch.zeros((L, w, d), dtype=vals.dtype, device=vals.device)
+    for r in range(-(-n_max // SEG_LANES)):
+        k = s[:, None] + r * SEG_LANES + lanes
+        live = k < e[:, None]
+        rows = vals[perm[torch.where(live, k, torch.zeros_like(k))]]
+        acc = acc + torch.where(live[..., None], rows, torch.zeros_like(rows))
+    while w > 1:
+        w //= 2
+        acc = acc[:, :w] + acc[:, w:2 * w]
+    return acc[:, 0]
+
+
+def segment_sum(vals, perm, starts, ends):
+    """Per-landmark sums of the map-scale BAs: out [L,d] with out[l] the
+    sum of vals[perm[k]] for k in [starts[l], ends[l]), in an order fixed
+    by the segment bounds alone (no atomics, no differences of running
+    sums). vals [rows,d] float32 or float64, d <= 16; perm [M], starts [L],
+    ends [L] int64 (ops/ba_large._landmark_segments), perm's entries rows
+    of vals. Bitwise repeatable and bitwise equal to segment_sum_ref."""
+    dev = vals.device
+    if dev.type == "cpu":
+        return segment_sum_ref(vals, perm, starts, ends)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_sum: unsupported device {dev}")
+    if vals.ndim != 2 or not 1 <= vals.shape[1] <= MAX_SEG_D:
+        raise ValueError(f"segment_sum: vals of shape {tuple(vals.shape)} "
+                         f"(needs [rows, d], 1 <= d <= {MAX_SEG_D})")
+    if vals.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"segment_sum: vals has dtype {vals.dtype}, "
+                         f"expected float32 or float64")
+    M, L, d = perm.shape[0], starts.shape[0], vals.shape[1]
+    _check(vals, "vals", vals.dtype, vals.shape, dev)
+    _check(perm, "perm", torch.int64, (M,), dev)
+    _check(starts, "starts", torch.int64, (L,), dev)
+    _check(ends, "ends", torch.int64, (L,), dev)
+    fn = _launch_fn("segment_sum_launch")
+    out = torch.empty((L, d), dtype=vals.dtype, device=dev)
+    err = fn(vals.data_ptr(), perm.data_ptr(), starts.data_ptr(),
+             ends.data_ptr(), M, L, d, int(vals.dtype == torch.float64),
+             out.data_ptr(), _stream(dev))
+    _raise_on(err, "segment_sum launch")
+    segment_sum.launches += 1
+    return out
+
+
+segment_sum.launches = 0

@@ -9,6 +9,16 @@ states add their Gauss-Newton blocks into the reduced (15P x 15P) system,
 solved densely once per LM iteration. The JAX package forms the landmark
 blocks with one-hot contractions, not with its Pallas kernel, and so does
 this port (a [P, N, L] one-hot matmul: deterministic, no float atomics).
+
+The residuals, Jacobians and costs are float32; everything from the
+per-observation products on (the landmark contractions, the Schur
+complement, the inertial blocks, the damping, the Cholesky solve and the
+back-substitution) is float64, and the step is rounded to float32 before
+the update. The reduced system's condition number reaches ~3e13 on an
+IMU_RGBD run, and assembled in float32 it loses the bits that set the
+accelerometer bias's step: solving that float32 system in float64 does
+not bring them back (PERF.md). The JAX package assembles and solves in
+float32, so the port departs from its arithmetic here on purpose.
 Poses are camera-from-world in a gravity-aligned world; the inertial edges
 act on body states through the extrinsics T_bc.
 """
@@ -119,16 +129,18 @@ def _viba_solve(R0, t0, v0, bg0, ba0, pose_fixed, lm0, lm_valid, cam,
     ovalid_flat = (obs_valid & (obs_lm >= 0)).reshape(-1)
     oxy_flat = obs_xy.reshape(-1, 2)
     base_valid = ovalid_flat & lm_valid[olm_flat]
+    f64 = torch.float64                     # the normal equations' type
     onehot = (torch.where(obs_valid, obs_lm, torch.full_like(obs_lm, -1))
               [:, :, None] == torch.arange(L, device=dev)[None, None, :]
-              ).to(torch.float32)                             # [P,N,L]
+              ).to(f64)                                       # [P,N,L]
     edge_W = imu_ops.edge_information(preints, calib,
                                       diag_only=not full_info)
     edge_W = edge_W * edge_valid[:, None, None].to(edge_W.dtype)
+    We = edge_W.to(f64)
     ar = torch.arange(P, device=dev)
     ii = torch.arange(P - 1, device=dev)
-    eye3 = torch.eye(3, device=dev)
-    eye15 = torch.eye(15, device=dev)
+    eye3 = torch.eye(3, dtype=f64, device=dev)
+    eye15 = torch.eye(15, dtype=f64, device=dev)
 
     def visual_cost(R, t, lm):
         r, _, _ = ba_ops._residuals(R, t, cam, lm, okf, olm_flat, oxy_flat)
@@ -155,6 +167,7 @@ def _viba_solve(R0, t0, v0, bg0, ba0, pose_fixed, lm0, lm_valid, cam,
         c = torch.sum(r * r, dim=-1)
         w = ba_ops._robust_w(c, delta) if robust else torch.ones_like(c)
         w = torch.where(base_valid, w, torch.zeros_like(w))
+        r, Jpose, Jpt, w = (x.to(f64) for x in (r, Jpose, Jpt, w))
         JtJ_p = torch.einsum('mik,m,mil->mkl', Jpose, w, Jpose)
         JtJ_l = torch.einsum('mik,m,mil->mkl', Jpt, w, Jpt)
         JtJ_pl = torch.einsum('mik,m,mil->mkl', Jpose, w, Jpt)
@@ -174,14 +187,14 @@ def _viba_solve(R0, t0, v0, bg0, ba0, pose_fixed, lm0, lm_valid, cam,
         S_off6 = torch.einsum('plik,qljk->pqij', W, H_pl)     # [P,P,6,6]
         rhs6 = g_p6 - torch.einsum('plij,lj->pi', W, g_l)
 
-        S = torch.zeros(P, P, 15, 15, device=dev)
+        S = torch.zeros(P, P, 15, 15, dtype=f64, device=dev)
         S[:, :, :6, :6] = -S_off6
         S[ar, ar, :6, :6] += H_pp6
-        rhs = torch.zeros(P, 15, device=dev)
+        rhs = torch.zeros(P, 15, dtype=f64, device=dev)
         rhs[:, :6] = rhs6
 
-        r_e, Ji, Jj = imu_edge_parts(R, t, v, bg, ba_, preints, calib)
-        We = edge_W
+        r_e, Ji, Jj = (x.to(f64) for x in imu_edge_parts(
+            R, t, v, bg, ba_, preints, calib))
         S[ii, ii] += torch.einsum('eki,ekl,elj->eij', Ji, We, Ji)
         S[ii + 1, ii + 1] += torch.einsum('eki,ekl,elj->eij', Jj, We, Jj)
         S[ii, ii + 1] += torch.einsum('eki,ekl,elj->eij', Ji, We, Jj)
@@ -203,6 +216,7 @@ def _viba_solve(R0, t0, v0, bg0, ba0, pose_fixed, lm0, lm_valid, cam,
         Hpl_t_dp = torch.einsum('plik,pi->lk', H_pl, dx[:, :6])
         dl = -torch.einsum('lij,lj->li', Hll_inv, g_l + Hpl_t_dp)
         dl = torch.where(lm_valid[:, None], dl, torch.zeros_like(dl))
+        dx, dl = dx.to(R.dtype), dl.to(lm.dtype)
 
         dR, dt = lie.se3_exp(dx[:, :6])
         cand = (dR @ R, torch.einsum('pij,pj->pi', dR, t) + dt,

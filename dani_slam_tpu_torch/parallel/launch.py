@@ -61,9 +61,11 @@ def _rank_main(fn, rank, n, store, backend, device, threads, args, out):
         raise
 
 
-def launch(fn, n: int, *args, backend: str = "gloo", device="cpu",
+def launch(fn, n: int, *args, backend: str = "gloo", device="cuda",
            threads: int = 2, timeout: float = 600.0) -> list:
     """fn(device, *args) on n ranks; returns the n results in rank order.
+    The ranks compute on the card unless `device` is "cpu", as every entry
+    point of the port does.
     Raises with a rank's traceback if one failed, or if a rank is still
     running after `timeout` seconds (all ranks are then terminated)."""
     ctx = mp.get_context("spawn")

@@ -11,7 +11,14 @@ then fuses duplicates and runs global BA (ops/ba_large). Both the correction
 and the global BA are time-sliced: bounded chunks run over a snapshot at the
 following keyframes and the result is welded back into the live map through
 the spanning tree and each landmark's reference keyframe — the single-device
-form of the reference's LoopClosing and GBA threads.
+form of the reference's LoopClosing and GBA threads. Three points depart
+from the JAX package on purpose: the sliced correction's last chunk is cut
+so that the pose graph runs pg_iters iterations, as correct_loop does (the
+JAX package runs whole chunks: 12 for 10); a sliced loop is counted, and
+its cooldown starts, when its weld lands with both loop ends still holding
+their keyframes; and when a correction and its GBA weld at one call
+(finish_gba), the tracker receives both corrections composed, not the
+last one alone.
 
 Relocalization matches the lost frame against a BoW candidate's landmarks
 (mutual-NN or LightGlue), solves PnP RANSAC, and refines with two
@@ -653,9 +660,18 @@ class LoopCloser:
                                snap.lm_mask, snap.lm_first_kf, R, t, lm,
                                chain_ref)
         self.stats["welds"] += 1
-        self.chain_corr = (cR, ct)
+        self._add_chain_corr(cR, ct)
         self._gba = None
         return st
+
+    def _add_chain_corr(self, cR, ct):
+        """Record a weld's correction of the tracker's pose chain after the
+        one not yet applied, if any: draining a correction and its GBA
+        welds twice (pose graph, then GBA), and the tracker must receive
+        both, in that order."""
+        if self.chain_corr is not None:
+            cR, ct = lie.se3_mul(*self.chain_corr, cR, ct)
+        self.chain_corr = (cR, ct)
 
     def _start_gba(self, st: mstate.MapState):
         if not self.run_gba:
@@ -668,16 +684,19 @@ class LoopCloser:
         return global_bundle_adjustment(st, self.cam)
 
     def _pgc_step(self, st: mstate.MapState, chain_ref):
-        """Advance the time-sliced loop correction by one chunk; when the
-        pose graph is done, weld back, fuse duplicates and start the GBA."""
+        """Advance the time-sliced loop correction by one chunk (the last one
+        shorter, so that the pose graph runs exactly pg_iters iterations, as
+        correct_loop does); when the pose graph is done, weld back, and if
+        both loop ends still hold their keyframes count the loop, fuse
+        duplicates; then start the GBA."""
         c = self._pgc
         if c["done"] < self.pg_iters:
+            n = min(self.pg_chunk_iters, self.pg_iters - c["done"])
             c["carry"] = loop_pg_chunk(
                 c["snap"], c["kf"], c["cand"], c["T12"], c["carry"],
-                iters=self.pg_chunk_iters, fix_scale=self.fix_scale,
-                four_dof=c["four_dof"])
+                iters=n, fix_scale=self.fix_scale, four_dof=c["four_dof"])
             self.stats["pg_chunks"] += 1
-            c["done"] += self.pg_chunk_iters
+            c["done"] += n
             return st
         snap = c["snap"]
         R_out, t_out, lm_pos, dmin, dmax = loop_correction_apply(
@@ -689,12 +708,16 @@ class LoopCloser:
             snap.lm_first_kf, R_out, t_out, lm_pos, dmin, dmax, c["kf"],
             c["cand"], c["cur_fid"], c["cand_fid"], chain_ref)
         self.stats["welds"] += 1
-        self.chain_corr = (cR, ct)
+        self._add_chain_corr(cR, ct)
         self._pgc = None
-        # fuse only if both loop ends still hold the same keyframes
+        # count the loop (and start its cooldown) and fuse only if both
+        # loop ends still hold the same keyframes: the guard under which
+        # the weld added the loop edge
         live_kf, live_cf = (int(x) for x in pull(torch.stack([
             st.kf_frame_id[c["kf"]], st.kf_frame_id[c["cand"]]])))
         if live_kf == c["cur_fid"] and live_cf == c["cand_fid"]:
+            self.n_loops += 1
+            self.last_loop_kf = c["kf_count"]
             st = search_and_fuse(st, self.cam, c["kf"], c["cand"])
         return self._start_gba(st)
 
@@ -844,15 +867,17 @@ class LoopCloser:
             f"({n} inliers), correcting")
         # a new verified loop supersedes any in-flight GBA or correction
         self.abort_gba()
-        self.last_loop_kf = kf_count
-        self.n_loops += 1
         if self.corr_async:
+            # counted when its weld lands (_pgc_step)
             K = st.caps.K
             carry = (st.kf_R, st.kf_t, torch.ones((K,), device=st.kf_R.device))
             self._pgc = {"snap": st, "kf": kf, "cand": cand, "T12": T12c,
                          "four_dof": four_dof, "carry": carry, "done": 0,
-                         "cur_fid": kf_fid, "cand_fid": cf}
+                         "cur_fid": kf_fid, "cand_fid": cf,
+                         "kf_count": kf_count}
             return st, True
+        self.last_loop_kf = kf_count
+        self.n_loops += 1
         st = correct_loop(st, self.cam, kf, cand, T12c,
                           pg_iters=self.pg_iters, fix_scale=self.fix_scale,
                           four_dof=four_dof)

@@ -787,8 +787,9 @@ class System:
 
     def shutdown(self):
         """Resolve everything in flight; a pending time-sliced loop
-        correction or global BA is drained, so that the trajectory and the
-        map carry the final correction."""
+        correction or global BA is drained, so that the map carries the
+        final correction and the tracker's pose chain every weld's
+        correction (composed by the loop closer, in weld order)."""
         self._resolve_kf_pull()
         self.tracker.flush()
         if self.tracker.pending_kf is not None and self.enable_mapping:

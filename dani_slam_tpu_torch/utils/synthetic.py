@@ -13,7 +13,14 @@ same seed renders the same frames (up to float rounding at the last bit).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
+
+
+class SyntheticWorld(NamedTuple):
+    points: np.ndarray    # [M,3] f32 world landmarks
+    desc: np.ndarray      # [M,D] f32 unit descriptors, unique per landmark
 
 
 def orbit_trajectory(n_frames: int, radius: float = 10.0,
@@ -271,15 +278,15 @@ def two_view_rays(n: int = 300, seed: int = 5, noise_px: float = 0.5,
 
 
 def make_world(n_points: int = 2000, desc_dim: int = 64, seed: int = 0,
-               box=((-6.0, 6.0), (-4.0, 4.0), (-6.0, 6.0))):
-    """Random landmark cloud: (points [M,3] f32, unit descriptors [M,D]
-    f32, unique per landmark)."""
+               box=((-6.0, 6.0), (-4.0, 4.0), (-6.0, 6.0))) -> SyntheticWorld:
+    """Random landmark cloud: SyntheticWorld(points [M,3] f32, unit
+    descriptors [M,D] f32, unique per landmark)."""
     rng = np.random.RandomState(seed)
     pts = np.stack([rng.uniform(lo, hi, n_points) for lo, hi in box],
                    axis=1).astype(np.float32)
     d = rng.randn(n_points, desc_dim).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return pts, d
+    return SyntheticWorld(pts, d)
 
 
 def render_frame(world, cam, R_cw, t_cw, n_max: int = 512,

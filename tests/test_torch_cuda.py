@@ -16,7 +16,8 @@ within atol 1e-4 and lets an index differ only on a near-tie; two launches
 are bitwise equal. The landmark-block kernel sums in another order than the
 plain version's one-hot contraction: rtol/atol 1e-5, and bitwise equal from
 one launch to the next (no float atomics). The reduction plan built on the
-device equals the plain version's sort exactly (integers).
+device equals the plain version's sort exactly (integers). The segment
+sum of the map-scale BAs adds in its plain version's order: the same bits.
 """
 import numpy as np
 import pytest
@@ -150,6 +151,36 @@ def test_lba_kernel_matches_plain(dev, P, N, L, invalid):
         assert torch.equal(a, b)         # fixed summation order
 
 
+@pytest.mark.parametrize("M,L,d", [
+    (16 * 1024, 8192, 9),         # the dry run's and the tests' GBA map
+    (256 * 1024, 32768, 3),       # MapCaps(): the CG matvec's H_pl^T x
+    (5000, 300, 16),              # the widest rows it takes
+    (100, 40, 1)])
+def test_segment_sum_matches_plain(dev, M, L, d):
+    """Kernel 3 against its plain version in float32 and float64: the
+    same bits (the plain version adds in the kernel's order), two launches
+    bitwise equal, and within 1e-6 of each landmark's terms' absolute sum
+    of the float64 sum; segments of up to a few hundred terms, empty ones
+    and observations without a landmark among them."""
+    from dani_slam_tpu_torch.ops.ba_large import _landmark_segments
+    gen = torch.Generator(device=dev).manual_seed(M + L + d)
+    ids = torch.randint(-1, L + 1, (M,), generator=gen, device=dev)
+    ids[: M // 10] = 7                    # one long segment
+    segs = _landmark_segments(ids.clamp(min=0), (ids >= 0) & (ids < L), L)
+    for dtype in (torch.float32, torch.float64):
+        v = torch.randn((M, d), generator=gen, device=dev,
+                        dtype=dtype) * 1e4
+        before = kernels.segment_sum.launches
+        out = kernels.segment_sum(v, *segs)
+        assert kernels.segment_sum.launches == before + 1
+        assert out.dtype == dtype and out.shape == (L, d)
+        assert torch.equal(out, kernels.segment_sum_ref(v, *segs))
+        assert torch.equal(out, kernels.segment_sum(v, *segs))
+        ref = kernels.segment_sum_ref(v.double(), *segs)
+        mag = kernels.segment_sum_ref(v.double().abs(), *segs)
+        assert bool((torch.abs(out.double() - ref) <= 1e-6 * mag).all())
+
+
 def test_wrappers_check_their_inputs(dev):
     q, qxy, qv, t, txy, tv, r = match_problem(16, 16, 32, 16, 0, dev)
     with pytest.raises(ValueError, match="dtype"):
@@ -164,6 +195,15 @@ def test_wrappers_check_their_inputs(dev):
     with pytest.raises(ValueError, match="shape"):
         kernels.lba_landmark_blocks(row_lm, vals[..., :29].contiguous(), 4,
                                     kernels.lba_plan(row_lm, 4))
+    idx = torch.zeros(8, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="d <= 16"):
+        kernels.segment_sum(torch.zeros((8, 17), device=dev), idx, idx, idx)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.segment_sum(torch.zeros((8, 3), device=dev).half(), idx,
+                            idx, idx)
+    with pytest.raises(ValueError, match="perm has dtype"):
+        kernels.segment_sum(torch.zeros((8, 3), device=dev), idx.int(), idx,
+                            idx)
 
 
 def test_frame_graph_replay_equals_eager_fused_function(dev):

@@ -10,13 +10,22 @@ tests/test_torch_cuda.py; what of them can be checked without a card is
 checked here: the rule by which the tensor-core window match is held
 against its plain version (kernels.window_match_agreement), and the
 sort-free algorithm of the device reduction plan, run in Python.
+
+segment_sum (the map-scale BAs' per-landmark sums) has no Pallas
+counterpart: its plain version is held against a float64 sum, each
+landmark within 1e-6 of the sum of its own terms' magnitudes, and against
+the kernel's order written out in numpy (lane-strided partial sums, then
+the butterfly) bit for bit; the JAX package's sums, differences of one f32
+running sum, break that bound at map scale.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dani_slam_tpu.ops import ba_large as jbal
 from dani_slam_tpu.ops import pallas_kernels as pk
+from dani_slam_tpu_torch.ops import ba_large as tbal
 from dani_slam_tpu_torch.ops import kernels
 
 
@@ -385,6 +394,104 @@ class TestLbaLandmarkBlocksPlain:
             assert torch.equal(a, b)
 
 
+def segment_problem(L, seed, max_terms=256, d=9, scale=1e4):
+    """Random landmark segments of 0..max_terms terms (every seventh
+    empty), ids out of range (>= L, < 0) among them, values ~scale with
+    random signs, in a random observation order; with the segments of
+    ops/ba_large._landmark_segments."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, max_terms + 1, L)
+    n[::7] = 0
+    ids = np.concatenate([np.repeat(np.arange(L), n),
+                          rng.integers(L, L + 9, 40), -rng.integers(1, 9, 40)])
+    ids = ids[rng.permutation(ids.size)]
+    vals = rng.standard_normal((ids.size, d)) * scale
+    valid = (ids >= 0) & (ids < L)
+    segs = tbal._landmark_segments(torch.as_tensor(ids),
+                                   torch.as_tensor(valid), L)
+    return ids, valid, vals, segs
+
+
+def float64_sums(ids, valid, vals, L):
+    """(sum, sum of magnitudes) per landmark, float64, numpy."""
+    out = np.zeros((L, vals.shape[1]))
+    mag = np.zeros_like(out)
+    np.add.at(out, ids[valid], vals[valid])
+    np.add.at(mag, ids[valid], np.abs(vals[valid]))
+    return out, mag
+
+
+class TestSegmentSumPlain:
+    @pytest.mark.parametrize("seed,d,max_terms", [(0, 9, 256), (1, 3, 256),
+                                                  (2, 9, 20), (3, 16, 40)])
+    def test_against_float64_sum(self, seed, d, max_terms):
+        L = 300
+        ids, valid, vals, segs = segment_problem(L, seed, max_terms, d)
+        want, mag = float64_sums(ids, valid, vals, L)
+        got = kernels.segment_sum_ref(
+            torch.as_tensor(vals, dtype=torch.float32), *segs).numpy()
+        assert got.dtype == np.float32 and got.shape == (L, d)
+        err = np.abs(got.astype(np.float64) - want)
+        assert np.all(err <= 1e-6 * mag), float((err / (mag + 1e-300)).max())
+        assert np.all(got[mag == 0] == 0)            # empty segments
+        got64 = kernels.segment_sum_ref(torch.as_tensor(vals), *segs)
+        assert got64.dtype == torch.float64
+        np.testing.assert_allclose(got64.numpy(), want, rtol=1e-12,
+                                   atol=1e-12 * float(mag.max()))
+
+    def test_kernel_order_bit_for_bit(self):
+        """csrc/segment_sum.cu's order written out: lane j of 32 adds the
+        terms start + j, + 32, ... in turn, then the butterfly (offsets 16,
+        8, 4, 2, 1). The plain version gives the same bits."""
+        L = 60
+        ids, _, vals, segs = segment_problem(L, 4, 256, 3)
+        perm, starts, ends = (x.numpy() for x in segs)
+        v = vals.astype(np.float32)
+        want = np.zeros((L, 3), np.float32)
+        for lm in range(L):
+            lanes = np.zeros((32, 3), np.float32)
+            for k in range(starts[lm], ends[lm]):
+                lanes[(k - starts[lm]) % 32] += v[perm[k]]
+            for off in (16, 8, 4, 2, 1):
+                lanes = lanes[:off] + lanes[off:2 * off]
+            want[lm] = lanes[0]
+        got = kernels.segment_sum_ref(torch.as_tensor(v), *segs).numpy()
+        np.testing.assert_array_equal(got, want)
+
+    def test_running_sum_differences_break_the_bound(self):
+        """At map scale (M 262144 observations of L 32768 landmarks, terms
+        ~1e4 from one sign, the last landmark's ~1): the JAX package's
+        segment sums, differences of one f32 running sum, lose the last
+        landmark to rounding; the fixed-order sum keeps it within 1e-6 of
+        its terms' magnitudes."""
+        M, L = 262144, 32768
+        rng = np.random.default_rng(5)
+        ids = np.repeat(np.arange(L), M // L)
+        vals = np.abs(rng.standard_normal((M, 1))) * 1e4
+        vals[ids == L - 1] = rng.uniform(0.5, 1.5, (M // L, 1))
+        valid = np.ones(M, bool)
+        want, mag = float64_sums(ids, valid, vals, L)
+        segs = tbal._landmark_segments(torch.as_tensor(ids),
+                                       torch.as_tensor(valid), L)
+        v32 = vals.astype(np.float32)
+        ours = kernels.segment_sum_ref(torch.as_tensor(v32), *segs).numpy()
+        pj = jbal._landmark_segments(jnp.asarray(ids), jnp.asarray(valid), L)
+        theirs = np.asarray(jbal._segsum(jnp.asarray(v32)[pj[0]], pj[1],
+                                         pj[2]))
+        rel = lambda x: np.abs(x.astype(np.float64) - want) / mag  # noqa
+        assert rel(ours).max() <= 1e-6
+        assert rel(theirs)[L - 1, 0] > 1e-3
+
+    def test_wrapper_on_cpu_takes_plain_version(self):
+        _, _, vals, segs = segment_problem(40, 6, 50, 9)
+        v = torch.as_tensor(vals, dtype=torch.float32)
+        before = kernels.segment_sum.launches
+        assert torch.equal(kernels.segment_sum(v, *segs),
+                           kernels.segment_sum_ref(v, *segs))
+        assert kernels.segment_sum.launches == before
+        assert kernels.launch_counts()["segment_sum"] == before
+
+
 def test_window_match_refuses_empty_targets():
     q, qxy, qv, t, txy, tv = _torch(make_problem(M=8, N=8, D=8))
     with pytest.raises(ValueError, match="no targets"):
@@ -400,3 +507,7 @@ def test_wrappers_refuse_other_devices():
                                                 device="meta"),
                                     torch.zeros((2, 4, 30), device="meta"), 8,
                                     None)
+    idx = torch.zeros(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.segment_sum(torch.zeros((4, 3), device="meta"), idx, idx,
+                            idx)

@@ -21,6 +21,9 @@ says why). End to end: the same detection keyframe, one loop each, the
 corrected centres within 1 mm.
 """
 
+import dataclasses
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -273,11 +276,13 @@ def test_gba_problem_and_global_ba(loop, corrected):
     exactly equal; the solve itself is compared by its outcome. On this map
     most landmarks are seen from one or two keyframes, so their H_ll blocks
     are nearly singular, and the f32 cumulative-sum differences that form
-    them (in both libraries, summed in another order) decide their steps:
-    element-wise agreement is not to be had here (the PCG solve is held to
-    rtol 1e-4 on a well-conditioned problem in test_torch_vocab_pnp.py).
-    Both must lower the keyframe-centre error against the ground truth, to
-    within 1 cm of each other, in 10 iterations as time-sliced chunks."""
+    them in the JAX package decide their steps: relabelling the landmarks
+    moves its mean keyframe-centre error by up to 0.148 m (relabellings
+    1-8, `python tests/test_torch_loop.py`). The port's sums are
+    fixed-order (kernels.segment_sum). Both must lower the keyframe-centre
+    error against the ground truth in 10 iterations as time-sliced chunks,
+    the port within the JAX package's own spread of it (0.15 m) and within
+    1 cm of its own float64 solve."""
     sj, stt = corrected
     pj = jlc._gba_problem(sj)
     pt = tlc._gba_problem(stt)
@@ -288,12 +293,20 @@ def test_gba_problem_and_global_ba(loop, corrected):
     C_gt = np.stack([-R_gt[i].T @ t_gt[i] for i in range(len(kf_ids))])
     cj = (sj.kf_R, sj.kf_t, sj.lm_pos, jnp.asarray(1e-4))
     ct = (stt.kf_R, stt.kf_t, stt.lm_pos, torch.tensor(1e-4))
+    s64 = dataclasses.replace(stt, kf_R=stt.kf_R.double(),
+                              kf_t=stt.kf_t.double(),
+                              lm_pos=stt.lm_pos.double(),
+                              kf_kp=stt.kf_kp.double())
+    c64 = (s64.kf_R, s64.kf_t, s64.lm_pos, torch.tensor(1e-4))
     for _ in range(5):
         cj = jlc.gba_chunk(sj, JC, cj, iters=2)
         ct = tlc.gba_chunk(stt, TC, ct, iters=2)
-    e0, ej, et = (np.linalg.norm(centres(R, t, kf_ids) - C_gt, axis=1).mean()
-                  for R, t in ((stt.kf_R, stt.kf_t), cj[:2], ct[:2]))
-    assert ej < e0 and et < e0 and abs(et - ej) < 0.01
+        c64 = tlc.gba_chunk(s64, TC, c64, iters=2)
+    e0, ej, et, e64 = (
+        np.linalg.norm(centres(R, t, kf_ids) - C_gt, axis=1).mean()
+        for R, t in ((stt.kf_R, stt.kf_t), cj[:2], ct[:2], c64[:2]))
+    assert ej < e0 and et < e0 and abs(et - ej) <= 0.15
+    assert abs(et - e64) < 0.01, (et, e64)
     assert np.all(np.isfinite(N(ct[2])))
     gt_ = tlc.global_bundle_adjustment(stt, TC, iters=10)
     for name in ("kf_R", "kf_t", "lm_pos"):
@@ -480,15 +493,20 @@ def test_loop_closer_end_to_end(loop):
         lc_.train_codebook_after = 6
         lc_.gba_chunk_iters = 2
         lc_.gba_iters = 4
+    # the JAX package's sliced correction runs whole chunks of 3: 12
+    # pose-graph iterations for its pg_iters 10; the port runs pg_iters
+    # exactly, so it is given the JAX count here
+    tl.pg_iters = 12
     sj, stt = d["st"], d["tst"]
     at = {}
     for count, k in enumerate(kf_ids, start=1):
         sj = jl.on_keyframe(sj, k, kf_count=count)
         stt = tl.on_keyframe(stt, k, kf_count=count)
+        # the keyframe that starts the correction (the JAX package counts
+        # the loop there, the port when its weld lands)
         for name, lc_ in (("jax", jl), ("torch", tl)):
-            if lc_.n_loops and name not in at:
+            if (lc_.n_loops or lc_._pgc is not None) and name not in at:
                 at[name] = count
-    assert jl.n_loops == tl.n_loops == 1
     assert at["jax"] == at["torch"]
     R_gt, t_gt = (N(x) for x in d["gt"])
     C_gt = np.stack([-R_gt[i].T @ t_gt[i] for i in range(len(kf_ids))])
@@ -497,6 +515,7 @@ def test_loop_closer_end_to_end(loop):
         sj = jl._pgc_step(sj, jnp.asarray(kf_ids[-1]))
     while tl._pgc is not None:
         stt = tl._pgc_step(stt, kf_ids[-1])
+    assert jl.n_loops == tl.n_loops == 1
     Cj, Ct = (centres(s_.kf_R, s_.kf_t, kf_ids) for s_ in (sj, stt))
     np.testing.assert_allclose(Ct, Cj, atol=1e-3)
     assert int(stt.lm_mask.sum()) == int(sj.lm_mask.sum())
@@ -510,3 +529,154 @@ def test_loop_closer_end_to_end(loop):
     e0, et = (np.linalg.norm(C - C_gt, axis=1) for C in (C0, Ct))
     assert et[-1] < 0.3 * e0[-1] and et.mean() < e0.mean()
     assert tl.stats["welds"] == 2 and tl.stats["verifications"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# The sliced correction's three repairs (the port departs from the JAX
+# package here on purpose: slam/loopclosing.py's module note)
+# ---------------------------------------------------------------------------
+
+def _sliced_loop(d, kf_count=16):
+    """A port LoopCloser holding the time-sliced correction of the drifted
+    map's verified loop, started as on_keyframe starts it: the third
+    coincidence of a hypothesis resolved at keyframe `cur`."""
+    st = d["tst"]
+    tl = tlc.LoopCloser(TC, TCAPS, codebook="live", seed=0, fix_scale=True)
+    tl.gba_iters = 4
+    cur, cand = d["cur"], d["cand"]
+    stats = torch.tensor([60, 1, int(st.kf_frame_id[cand]),
+                          int(st.kf_frame_id[cur])])
+    tl._pending_verify = (cand, tuple(T(x) for x in d["T12"]), cur,
+                          types.SimpleNamespace(get=lambda: stats),
+                          tl.consistency_needed - 1)
+    st, corrected = tl._resolve_verify(st, cur, kf_count)
+    assert corrected and tl._pgc is not None
+    return tl, st
+
+
+@pytest.fixture(scope="module")
+def sliced(loop):
+    """The sliced correction of the drifted loop drained by finish_gba (the
+    pose-graph chunks' iteration counts recorded), and drained step by
+    step with each weld's correction of the tracker's pose taken alone."""
+    d = loop["drift"]
+    cur = d["cur"]
+    chunks = []
+    chunk = tlc.loop_pg_chunk
+
+    def counted(*a, **k):
+        chunks.append(k["iters"])
+        return chunk(*a, **k)
+    tlc.loop_pg_chunk = counted
+    try:
+        tl, st = _sliced_loop(d)
+        counted_at_start = (tl.n_loops, tl.last_loop_kf)
+        T12c = tl._pgc["T12"]
+        drained = tl.finish_gba(st, cur)
+    finally:
+        tlc.loop_pg_chunk = chunk
+    ts, st_s = _sliced_loop(d)
+    while ts._pgc is not None:
+        st_s = ts._pgc_step(st_s, cur)
+    after_pg, c_pg = st_s, ts.chain_corr
+    ts.chain_corr = None
+    while ts._gba is not None:
+        st_s = ts._gba_step(st_s, cur)
+    return dict(tl=tl, drained=drained, chunks=chunks, T12c=T12c,
+                counted_at_start=counted_at_start, after_pg=after_pg,
+                c_pg=c_pg, c_gba=ts.chain_corr, stepped=st_s)
+
+
+def test_finish_gba_composes_both_welds_corrections(loop, sliced):
+    """finish_gba welds twice (pose graph, then GBA): the tracker's pose
+    chain receives the pose graph's correction composed with the GBA's, so
+    the reference keyframe's old pose, so corrected, is its final pose (the
+    second weld used to overwrite the first)."""
+    cur = loop["drift"]["cur"]
+    c_pg, c_gba = sliced["c_pg"], sliced["c_gba"]
+    assert float(torch.linalg.norm(c_pg[1])) > 1e-2   # the loop moved it
+    want = tlie.se3_mul(*c_pg, *c_gba)
+    got = sliced["tl"].chain_corr
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(N(a), N(b), atol=1e-6)
+    st0, fin = loop["drift"]["tst"], sliced["drained"]
+    assert torch.equal(fin.kf_t, sliced["stepped"].kf_t)
+    R, t = tlie.se3_mul(st0.kf_R[cur], st0.kf_t[cur], *got)
+    np.testing.assert_allclose(N(R), N(fin.kf_R[cur]), atol=1e-4)
+    np.testing.assert_allclose(N(t), N(fin.kf_t[cur]), atol=1e-4)
+
+
+def test_sliced_correction_runs_pg_iters(loop, sliced):
+    """The last chunk is cut: chunks of 3, 3, 3 and 1 for pg_iters 10 (whole
+    chunks ran 12), and the welded poses are the synchronous correction's
+    with pg_iters 10."""
+    d = loop["drift"]
+    assert sliced["chunks"] == [3, 3, 3, 1]
+    assert sum(sliced["chunks"]) == sliced["tl"].pg_iters == 10
+    sync = tlc.correct_loop(d["tst"], TC, d["cur"], d["cand"],
+                            sliced["T12c"], pg_iters=10, fix_scale=True)
+    after = sliced["after_pg"]
+    for name in ("kf_R", "kf_t"):
+        np.testing.assert_allclose(N(getattr(after, name)),
+                                   N(getattr(sync, name)), atol=1e-5,
+                                   err_msg=name)
+
+
+def test_sliced_loop_counted_when_its_weld_lands(loop, sliced):
+    """A sliced loop is counted, and its cooldown starts, when its weld
+    lands with both loop ends holding their keyframes; when a loop end's
+    slot holds another keyframe by then, the loop is not counted, its
+    cooldown does not start and no loop edge is added."""
+    assert sliced["counted_at_start"] == (0, -10 ** 9)
+    assert (sliced["tl"].n_loops, sliced["tl"].last_loop_kf) == (1, 16)
+    d = loop["drift"]
+    cur, cand = d["cur"], d["cand"]
+    tl, st = _sliced_loop(d)
+    tl.run_gba = False
+    fid = st.kf_frame_id.clone()
+    fid[cur] = 999                         # the slot was reused meanwhile
+    live = tl.finish_gba(dataclasses.replace(st, kf_frame_id=fid), cur)
+    assert (tl.n_loops, tl.last_loop_kf) == (0, -10 ** 9)
+    assert tl.stats["welds"] == 1
+    assert not bool(live.loop_edges[cur, cand])
+
+
+def jax_gba_relabel_spread(seeds=range(1, 9)):
+    """test_gba_problem_and_global_ba's time-sliced JAX GBA on the corrected
+    drifted map with its landmark table in the order of random permutations
+    (the same problem, its running sums in other orders): the mean
+    keyframe-centre error against the ground truth, and its change from the
+    table order's."""
+    import dataclasses as dc
+    st, kf_ids, gt, _ = jsyn.make_drifted_loop_state(JC, CAPS, K=16,
+                                                     drift=0.35)
+    cur, cand = kf_ids[-1], kf_ids[0]
+    T12, _, _ = jlc.verify_loop_candidate(
+        st, JC, jnp.asarray(cur), jnp.asarray(cand), jax.random.PRNGKey(0),
+        fix_scale=True, min_inliers=20)
+    sj = jlc.correct_loop(st, JC, jnp.asarray(cur), jnp.asarray(cand), T12,
+                          fix_scale=True)
+    R_gt, t_gt = (N(x) for x in gt)
+    C_gt = np.stack([-R_gt[i].T @ t_gt[i] for i in range(len(kf_ids))])
+
+    def run(s):
+        c = (s.kf_R, s.kf_t, s.lm_pos, jnp.asarray(1e-4))
+        for _ in range(5):
+            c = jlc.gba_chunk(s, JC, c, iters=2)
+        return np.linalg.norm(centres(*c[:2], kf_ids) - C_gt, axis=1).mean()
+    base = run(sj)
+    print("table order", base, flush=True)
+    olm = np.asarray(sj.obs_lm)
+    for seed in seeds:
+        perm = np.random.RandomState(seed).permutation(CAPS.L)
+        inv = np.argsort(perm)
+        e = run(dc.replace(sj, lm_pos=sj.lm_pos[perm],
+                           lm_mask=sj.lm_mask[perm],
+                           obs_lm=jnp.asarray(np.where(
+                               olm >= 0, inv[np.maximum(olm, 0)],
+                               olm).astype(olm.dtype))))
+        print("relabel", seed, e, "change", abs(e - base), flush=True)
+
+
+if __name__ == "__main__":
+    jax_gba_relabel_spread()

@@ -9,16 +9,20 @@ file store in a temporary directory, 2 torch threads each):
   * sharded_ba_solve against the JAX package's ba_solve on
     tests/test_ba.py's problem at tests/test_parallel.py's tolerances
     (poses 1e-3, landmarks 1e-2);
-  * sharded_gba against the port's own one-process global BA, both in
-    float64 (dryrun.GBA_TOL: the float32 solve of a drifted map moves by
-    centimetres to decimetres under any change of summation order, which
-    sharding is — ops/ba_large._segsum cancels);
+  * the float32 global BA of the drifted loop map (dryrun.GBA_MAP) in
+    table order and with its landmarks relabelled twice, and sharded_gba
+    in float32 on 2 and 4 ranks, against the one-process float64 solve:
+    cost within 1 %, keyframes and landmarks within dryrun.GBA_TOL (the
+    per-landmark sums are kernels.segment_sum's fixed-order sums; as
+    differences of a running sum, the JAX package's arithmetic, a
+    relabelling moved the cost by 10 %);
   * ba_solve and ba_solve_pcg with the `reduce` hook left at None give
     bitwise the results of the code before the hook (digests taken at
     the parent commit), and an identity hook changes nothing;
   * the dry run's command line.
 """
 import hashlib
+import inspect
 import os
 import subprocess
 import sys
@@ -77,7 +81,8 @@ def sharded_step(request, jax_step):
     init = convert.from_flax(tsp.SuperPoint(compute_dtype=torch.float32),
                              params).state_dict()
     return n, launch.launch(dryrun.sharded_train_rank, n, n, STEPS, init,
-                            torch.as_tensor(x).permute(0, 3, 1, 2), LR)
+                            torch.as_tensor(x).permute(0, 3, 1, 2), LR,
+                            device="cpu")
 
 
 def test_mesh_shape_and_split(sharded_step):
@@ -145,7 +150,8 @@ def ba_problem():
 @pytest.mark.parametrize("n", [2, 4])
 def test_sharded_ba_matches_jax(ba_problem, n):
     problem, ref = ba_problem
-    ranks = launch.launch(dryrun.sharded_ba_rank, n, problem, 10)
+    ranks = launch.launch(dryrun.sharded_ba_rank, n, problem, 10,
+                          device="cpu")
     L = problem["lm0"].shape[0]
     assert [r["landmarks"] for r in ranks] == [
         (i * L // n, (i + 1) * L // n) for i in range(n)]
@@ -161,7 +167,7 @@ def test_sharded_ba_matches_jax(ba_problem, n):
         assert r["foreign_modules"] == []
 
 
-GBA_ITERS = 6
+GBA_ITERS = dryrun.GBA_ITERS
 
 
 @pytest.fixture(scope="module")
@@ -178,29 +184,59 @@ def test_single_gba_is_global_bundle_adjustment(gba_single):
     full = loopclosing.global_bundle_adjustment(st, cam, iters=GBA_ITERS)
     assert torch.equal(full.kf_t[st.kf_mask], single.t[st.kf_mask])
     assert torch.equal(full.lm_pos[st.lm_mask], single.lm_pos[st.lm_mask])
-    # relabelling the landmarks changes only the order of the sums
-    relabelled = dryrun.single_gba(st, cam, GBA_ITERS, torch.float64,
-                                   relabel=1)
-    err = dryrun.gba_errors(relabelled, single64, st)
+    # relabelling the landmarks moves the rows of the landmark table, not
+    # the order of any landmark's sum: the same bits
+    relabelled = dryrun.single_gba(st, cam, GBA_ITERS, relabel=1)
+    assert torch.equal(relabelled.t, single.t)
+    assert torch.equal(relabelled.lm_pos, single.lm_pos)
+
+
+@pytest.mark.parametrize("relabel", [None, 1, 2])
+def test_float32_gba_against_float64(gba_single, relabel):
+    """The float32 solve in table order and with the landmarks relabelled
+    (two random orders of the table) lands within 1 % of the float64 cost
+    and within dryrun.GBA_TOL of its keyframes and landmarks (as
+    differences of one running sum, the costs were 708.88 / 779.12 /
+    709.40 against 708.43)."""
+    st, cam, single, single64 = gba_single
+    res = single if relabel is None else dryrun.single_gba(
+        st, cam, GBA_ITERS, relabel=relabel)
+    assert res.t.dtype == torch.float32
+    assert abs(float(res.cost) - float(single64.cost)) <= \
+        1e-2 * float(single64.cost), (float(res.cost), float(single64.cost))
+    err = dryrun.gba_errors(res, single64, st)
     assert err[0] <= dryrun.GBA_TOL[0] and err[1] <= dryrun.GBA_TOL[1], err
 
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_sharded_gba_matches_one_process(gba_single, n):
-    """In float64 (dryrun.GBA_TOL); the float32 solve of a drifted map
-    moves by centimetres to decimetres under any change of summation
-    order, the sharding's or a relabelling's."""
+    """In float32 against the one-process float64 solve (the sharding
+    changes the order of the pose-indexed sums): cost within 1 %,
+    keyframes and landmarks within dryrun.GBA_TOL."""
     st, _, _, single64 = gba_single
     for r in launch.launch(dryrun.sharded_gba_rank, n, *dryrun.GBA_MAP,
-                           GBA_ITERS, torch.float64):
+                           GBA_ITERS, device="cpu"):
+        assert r["t"].dtype == torch.float32
         res = ba.BAResult(r["R"], r["t"], r["lm_pos"], r["obs_inlier"],
                           r["cost"])
         err = dryrun.gba_errors(res, single64, st)
         assert err[0] <= dryrun.GBA_TOL[0] and \
             err[1] <= dryrun.GBA_TOL[1], err
         np.testing.assert_allclose(float(r["cost"]), float(single64.cost),
-                                   rtol=1e-6)
+                                   rtol=1e-2)
         assert r["foreign_modules"] == []
+
+
+def test_launch_runs_on_the_card_by_default():
+    """launch's ranks compute on the card unless asked for the CPU, as
+    every other entry point of the port: on a host without one, a launch
+    that names no device fails in its rank."""
+    assert inspect.signature(launch.launch).parameters["device"].default \
+        == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="rank 0"):
+        launch.launch(dryrun.sharded_ba_rank, 1, None, 1, timeout=120)
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +277,11 @@ def _digest(res):
 
 # sha256 of (R, t, lm_pos, obs_inlier, cost) of the code before the hook
 # existed, on _hook_problem(seed): ba_solve 5 iterations, ba_solve_pcg 4
-BEFORE = {0: ("891cb3fec2597d7e", "63ab5089b51489fa"),
-          1: ("1d37d39d8ea932c8", "51cc382a75408738")}
+# (ba_solve_pcg's retaken when its per-landmark sums became
+# kernels.segment_sum, which adds in another order than the running-sum
+# differences before it; with the hook at None, as before)
+BEFORE = {0: ("891cb3fec2597d7e", "bdda9a5e55808fbf"),
+          1: ("1d37d39d8ea932c8", "918e76af60994d07")}
 
 
 @pytest.mark.parametrize("seed", sorted(BEFORE))

@@ -1,8 +1,9 @@
 """The last utilities of the port against the JAX package on the same
 inputs: mapping.lba_window_stats, state.cull_keyframe,
-synthetic.forward_trajectory, utils/verbose, utils/stage_profile (the
-per-stage timing of the RGB-D path and its four stat files), and, port
-only, utils/viewer.draw_map and utils/timing.device_trace on the CPU.
+synthetic.forward_trajectory and synthetic.make_world, utils/verbose,
+utils/stage_profile (the per-stage timing of the RGB-D path and its four
+stat files), and, port only, utils/viewer.draw_map and
+utils/timing.device_trace on the CPU.
 
 The stage profile runs in both packages on one short RGB-D sequence (the
 port's numpy renderer: 12 frames of 320x240 images along the bench's orbit
@@ -188,6 +189,21 @@ def test_forward_trajectory_matches(n, step, yaw):
     assert Rt.dtype == tt.dtype == np.float32
     np.testing.assert_array_equal(Rt, np.asarray(Rj))
     np.testing.assert_array_equal(tt, np.asarray(tj))
+
+
+def test_make_world_is_a_synthetic_world():
+    """make_world returns SyntheticWorld(points, desc) as the JAX package
+    does, with the same fields and values, and still unpacks as a pair."""
+    from dani_slam_tpu.utils import synthetic as jsyn
+    from dani_slam_tpu_torch.utils import synthetic as tsyn
+    w = tsyn.make_world(300, desc_dim=16, seed=5)
+    j = jsyn.make_world(300, desc_dim=16, seed=5)
+    assert isinstance(w, tsyn.SyntheticWorld)
+    assert w._fields == j._fields == ("points", "desc")
+    pts, desc = w
+    assert pts is w.points and desc is w.desc
+    np.testing.assert_array_equal(w.points, np.asarray(j.points))
+    np.testing.assert_array_equal(w.desc, np.asarray(j.desc))
 
 
 def test_verbose_matches():

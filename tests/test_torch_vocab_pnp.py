@@ -31,6 +31,7 @@ from dani_slam_tpu_torch.core import cameras as tcam
 from dani_slam_tpu_torch.core import lie as tlie
 from dani_slam_tpu_torch.models import vocab as tvocab
 from dani_slam_tpu_torch.ops import ba_large as tbal
+from dani_slam_tpu_torch.ops import kernels as tkernels
 from dani_slam_tpu_torch.ops import linalg as tlinalg
 from dani_slam_tpu_torch.ops import pnp as tpnp
 from dani_slam_tpu_torch.ops import posegraph as tpg
@@ -353,12 +354,8 @@ def test_optimize_essential_graph_4dof(graph):
 # PCG bundle adjustment
 # ---------------------------------------------------------------------------
 
-def test_ba_pcg_chunk_and_solve():
-    """A 12-keyframe problem with 192 landmarks in the keyframe-major layout
-    of global BA (each keyframe sees most of them), noisy start. With a
-    short baseline, far landmarks are so badly conditioned that the last
-    bits of the two libraries' projections move their LM steps by more than
-    the tolerance: the baseline is wide on purpose."""
+def pcg_problem():
+    """test_ba_pcg_chunk_and_solve's problem as numpy arrays."""
     rng = np.random.RandomState(9)
     P, L, Nk = 12, 192, 160
     X = rng.uniform([-3, -2, 5], [3, 2, 11], (L, 3)).astype(np.float32)
@@ -383,6 +380,34 @@ def test_ba_pcg_chunk_and_solve():
     info = (1.2 ** (-2.0 * rng.randint(0, 3, P * Nk))).astype(np.float32)
     okf = np.repeat(np.arange(P), Nk).astype(np.int32)
     olm = np.where(valid, obs_lm, 0).reshape(-1)
+    return R, t, t0, X0, pose_fixed, lm_valid, info, okf, olm, xy, valid
+
+
+def jax_pcg_solve(p, relabel=None, iters=4):
+    """The JAX package's ba_solve_pcg on pcg_problem's arrays, the landmark
+    table in the order of a random permutation (seed `relabel`, undone in
+    the result) where given: (t, landmarks)."""
+    R, _, t0, X0, pose_fixed, lm_valid, info, okf, olm, xy, valid = p
+    perm = np.arange(X0.shape[0]) if relabel is None else \
+        np.random.RandomState(relabel).permutation(X0.shape[0])
+    inv = np.argsort(perm)
+    r = jbal.ba_solve_pcg(
+        jnp.asarray(R), jnp.asarray(t0), jnp.asarray(pose_fixed),
+        jnp.asarray(X0[perm]), jnp.asarray(lm_valid[perm]), JC,
+        jnp.asarray(okf), jnp.asarray(inv[olm].astype(np.int32)),
+        jnp.asarray(xy.reshape(-1, 2)), jnp.asarray(valid.reshape(-1)),
+        obs_info=jnp.asarray(info), iters=iters)
+    return np.asarray(r.t), np.asarray(r.lm_pos)[inv]
+
+
+def test_ba_pcg_chunk_and_solve():
+    """A 12-keyframe problem with 192 landmarks in the keyframe-major layout
+    of global BA (each keyframe sees most of them), noisy start. With a
+    short baseline, far landmarks are so badly conditioned that the last
+    bits of the two libraries' projections move their LM steps by more than
+    the tolerance: the baseline is wide on purpose."""
+    (R, t, t0, X0, pose_fixed, lm_valid, info, okf, olm, xy,
+     valid) = pcg_problem()
     args_j = (jnp.asarray(pose_fixed), jnp.asarray(lm_valid), JC,
               jnp.asarray(okf), jnp.asarray(olm), jnp.asarray(xy.reshape(-1, 2)),
               jnp.asarray(valid.reshape(-1)))
@@ -401,10 +426,23 @@ def test_ba_pcg_chunk_and_solve():
                            obs_info=jnp.asarray(info), iters=4)
     st_ = tbal.ba_solve_pcg(T(R), T(t0), T(pose_fixed), T(X0), T(lm_valid),
                             TC, *args_t[3:], obs_info=T(info), iters=4)
-    np.testing.assert_allclose(N(st_.t), N(sj.t), rtol=1e-4, atol=1e-4)
+    # the port's per-landmark sums are fixed-order sums, the JAX package's
+    # differences of a running sum (another rounding): after 4 iterations
+    # the port is held to the JAX package's own spread when its landmarks
+    # are relabelled (the same problem, its sums in other orders): the
+    # largest change over relabellings 1-8 was 5.4e-4 (t) / 3.9e-4
+    # (landmarks) (`python tests/test_torch_vocab_pnp.py`); and it lies
+    # nearer the float64 solve than the JAX one
+    np.testing.assert_allclose(N(st_.t), N(sj.t), rtol=1e-4, atol=5.5e-4)
     np.testing.assert_allclose(N(st_.lm_pos), N(sj.lm_pos), rtol=1e-4,
-                               atol=1e-4)
+                               atol=4e-4)
     np.testing.assert_array_equal(N(st_.obs_inlier), N(sj.obs_inlier))
+    D = lambda a: T(a).double()                             # noqa: E731
+    s64 = tbal.ba_solve_pcg(D(R), D(t0), T(pose_fixed), D(X0), T(lm_valid),
+                            TC, *args_t[3:5], D(xy.reshape(-1, 2)),
+                            args_t[6], obs_info=D(info), iters=4)
+    assert np.abs(N(st_.t) - N(s64.t)).max() < \
+        np.abs(N(sj.t) - N(s64.t)).max()
     # the solve moved towards the truth
     assert np.abs(N(st_.t) - t).max() < np.abs(t0 - t).max()
 
@@ -417,7 +455,27 @@ def test_landmark_segments_match_reference():
     pt = tbal._landmark_segments(T(ids), T(valid), 50)
     for a, b in zip(pt, pj):
         np.testing.assert_array_equal(N(a), N(b))
+    # the port's per-landmark sums (kernels.segment_sum, fixed order)
+    # against the JAX package's (differences of a running sum)
     vals = rng.randn(400, 3).astype(np.float32)
     np.testing.assert_allclose(
-        N(tbal._segsum(T(vals)[pt[0]], pt[1], pt[2])),
+        N(tkernels.segment_sum(T(vals), *pt)),
         N(jbal._segsum(jnp.asarray(vals)[pj[0]], pj[1], pj[2])), atol=1e-5)
+
+
+if __name__ == "__main__":
+    # the JAX package's own spread on test_ba_pcg_chunk_and_solve's 4
+    # iterations when its landmarks are relabelled, and the port's
+    # difference from it
+    prob = pcg_problem()
+    base_t, base_l = jax_pcg_solve(prob)
+    for seed in range(1, 9):
+        t_, l_ = jax_pcg_solve(prob, seed)
+        print("relabel", seed, "t", float(np.abs(t_ - base_t).max()),
+              "landmarks", float(np.abs(l_ - base_l).max()), flush=True)
+    R, _, t0, X0, pf, lmv, info, okf, olm, xy, valid = prob
+    port = tbal.ba_solve_pcg(T(R), T(t0), T(pf), T(X0), T(lmv), TC, T(okf),
+                             T(olm), T(xy.reshape(-1, 2)),
+                             T(valid.reshape(-1)), obs_info=T(info), iters=4)
+    print("port", "t", float(np.abs(N(port.t) - base_t).max()), "landmarks",
+          float(np.abs(N(port.lm_pos) - base_l).max()), flush=True)
