@@ -26,11 +26,14 @@ rank — no sort, no float atomics), keeps several observations' loads in
 flight, and writes all of H_pl once; it agrees with its plain version
 within rtol/atol 1e-5 (another summation order) and is bitwise repeatable.
 segment_sum is bound by bytes too (a gather of each live observation's row
-through the landmark order); one warp per landmark adds lane-strided
-partial sums and combines them in a fixed butterfly, in float32 or
-float64, and its plain version adds in the same order: the two are
-bitwise equal. The source note at the head of each .cu file gives the
-design in full.
+through the landmark order), though at the map-scale BAs' sizes the launch
+and a chain of dependent loads set its time: a lane per landmark runs the
+fixed order (lane-strided partial sums, a butterfly) alone for a segment
+of at most SEG_SHORT terms, with all its loads in flight together, and the
+warp runs it for a longer one; a warp stores its 32 rows as one contiguous
+run; float32 or float64. Its plain version adds in the same order: the two
+are bitwise equal. The source note at the head of each .cu file gives
+the design in full.
 
 Each CUDA source is compiled at first use with nvcc for sm_90a into a shared
 library with a plain C interface under build/kernels/ (one nvcc per source,
@@ -495,16 +498,18 @@ lba_landmark_blocks.launches = 0
 # ---------------------------------------------------------------------------
 
 SEG_LANES = 32        # the lanes of one warp, which stride a segment
+SEG_SHORT = 8         # longest segment segment_sum.cu adds in one thread
 
 
 def segment_sum_ref(vals, perm, starts, ends):
     """Plain PyTorch version of segment_sum, in the kernel's order: lane j
     (of 32) adds the terms starts[l] + j, + j + 32, ... one after the
     other, then the lanes combine in a butterfly (lane i + lane i + 16,
-    then + 8, 4, 2, 1). The two give the same bits. Lanes that no segment
-    reaches hold exact zeros and are left out (adding them changes no
-    bit), so a map whose segments have at most w terms works on w lanes
-    (the next power of two)."""
+    then + 8, 4, 2, 1). The two give the same bits (the kernel runs the
+    order in one thread for a segment of at most SEG_SHORT terms, in a
+    warp for a longer one). Lanes that no segment reaches hold exact zeros
+    and are left out (adding them changes no bit), so a map whose segments
+    have at most w terms works on w lanes (the next power of two)."""
     L, d = starts.shape[0], vals.shape[1]
     M = perm.shape[0]
     s = starts.clamp(0, M)
@@ -529,10 +534,14 @@ def segment_sum_ref(vals, perm, starts, ends):
 def segment_sum(vals, perm, starts, ends):
     """Per-landmark sums of the map-scale BAs: out [L,d] with out[l] the
     sum of vals[perm[k]] for k in [starts[l], ends[l]), in an order fixed
-    by the segment bounds alone (no atomics, no differences of running
-    sums). vals [rows,d] float32 or float64, d <= 16; perm [M], starts [L],
-    ends [L] int64 (ops/ba_large._landmark_segments), perm's entries rows
-    of vals. Bitwise repeatable and bitwise equal to segment_sum_ref."""
+    by the segment's own terms alone (no atomics, no differences of running
+    sums): 32 lane-strided partial sums and a butterfly, run by one thread
+    for a segment of at most SEG_SHORT terms (3 roundings) and by a warp
+    for a longer one (at most 7 + 5 roundings at MapCaps()' 256 terms), so
+    each sum lies within 12 roundings of its own terms' absolute sum.
+    vals [rows,d] float32 or float64, d <= 16; perm [M], starts [L], ends
+    [L] int64 (ops/ba_large._landmark_segments), perm's entries rows of
+    vals. Bitwise repeatable and bitwise equal to segment_sum_ref."""
     dev = vals.device
     if dev.type == "cpu":
         return segment_sum_ref(vals, perm, starts, ends)

@@ -394,13 +394,14 @@ class TestLbaLandmarkBlocksPlain:
             assert torch.equal(a, b)
 
 
-def segment_problem(L, seed, max_terms=256, d=9, scale=1e4):
-    """Random landmark segments of 0..max_terms terms (every seventh
-    empty), ids out of range (>= L, < 0) among them, values ~scale with
-    random signs, in a random observation order; with the segments of
-    ops/ba_large._landmark_segments."""
+def segment_problem(L, seed, max_terms=256, d=9, scale=1e4, lengths=None):
+    """Random landmark segments of 0..max_terms terms (or of `lengths`,
+    cycled; every seventh empty either way), ids out of range (>= L, < 0)
+    among them, values ~scale with random signs, in a random observation
+    order; with the segments of ops/ba_large._landmark_segments."""
     rng = np.random.default_rng(seed)
-    n = rng.integers(0, max_terms + 1, L)
+    n = rng.integers(0, max_terms + 1, L) if lengths is None else \
+        np.resize(np.asarray(lengths), L)
     n[::7] = 0
     ids = np.concatenate([np.repeat(np.arange(L), n),
                           rng.integers(L, L + 9, 40), -rng.integers(1, 9, 40)])
@@ -439,24 +440,50 @@ class TestSegmentSumPlain:
         np.testing.assert_allclose(got64.numpy(), want, rtol=1e-12,
                                    atol=1e-12 * float(mag.max()))
 
-    def test_kernel_order_bit_for_bit(self):
-        """csrc/segment_sum.cu's order written out: lane j of 32 adds the
-        terms start + j, + 32, ... in turn, then the butterfly (offsets 16,
-        8, 4, 2, 1). The plain version gives the same bits."""
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("max_terms,lengths", [
+        (8, None),                    # short segments only
+        (0, (7, 8, 9, 32, 3)),        # both ways, at the threshold
+        (256, None)],                 # up to MapCaps()' 256 terms
+        ids=["short", "7-8-9-32", "to-256"])
+    def test_kernel_order_bit_for_bit(self, max_terms, lengths, dtype):
+        """csrc/segment_sum.cu's order written out both ways it runs it: a
+        segment of n <= SEG_SHORT terms by one thread as ((t0 + t4) + (t2 +
+        t6)) + ((t1 + t5) + (t3 + t7)), t_j = 0 + term j or 0; a longer one
+        by 32 lanes, lane j adding the terms start + j, + 32, ... in turn
+        from 0, then the butterfly (offsets 16, 8, 4, 2, 1). The plain
+        version gives the same bits, the sign of a zero sum included (two
+        segments of -0.0 terms)."""
+        assert kernels.SEG_SHORT == 8
         L = 60
-        ids, _, vals, segs = segment_problem(L, 4, 256, 3)
+        ids, _, vals, segs = segment_problem(L, 4, max_terms, 3,
+                                             lengths=lengths)
         perm, starts, ends = (x.numpy() for x in segs)
-        v = vals.astype(np.float32)
-        want = np.zeros((L, 3), np.float32)
+        n = ends - starts
+        v = vals.astype(dtype)
+        for lm in np.flatnonzero(n > 1)[:2]:
+            v[perm[starts[lm]:ends[lm]]] = -0.0
+        want = np.zeros((L, 3), dtype)
         for lm in range(L):
-            lanes = np.zeros((32, 3), np.float32)
-            for k in range(starts[lm], ends[lm]):
-                lanes[(k - starts[lm]) % 32] += v[perm[k]]
+            s, e = starts[lm], ends[lm]
+            if e - s <= 8:
+                t = np.zeros((8, 3), dtype)
+                t[:e - s] = dtype(0) + v[perm[s:e]]
+                want[lm] = ((t[0] + t[4]) + (t[2] + t[6])) + \
+                    ((t[1] + t[5]) + (t[3] + t[7]))
+                continue
+            lanes = np.zeros((32, 3), dtype)
+            for k in range(s, e):
+                lanes[(k - s) % 32] += v[perm[k]]
             for off in (16, 8, 4, 2, 1):
                 lanes = lanes[:off] + lanes[off:2 * off]
             want[lm] = lanes[0]
+        if lengths is not None:
+            assert {7, 8, 9, 32} <= set(n.tolist())
+        assert (n.max() > 8) == (max_terms != 8)
         got = kernels.segment_sum_ref(torch.as_tensor(v), *segs).numpy()
-        np.testing.assert_array_equal(got, want)
+        bits = np.uint32 if dtype == np.float32 else np.uint64
+        np.testing.assert_array_equal(got.view(bits), want.view(bits))
 
     def test_running_sum_differences_break_the_bound(self):
         """At map scale (M 262144 observations of L 32768 landmarks, terms
