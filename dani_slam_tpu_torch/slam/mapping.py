@@ -542,7 +542,9 @@ def keyframe_step(st: mstate.MapState, cam, feat_xy, feat_valid, feat_desc,
     culling. Returns
     (st, kf_slot, n_tracked, chain') where chain' re-anchors the tracker's
     pose chain (R_cur, t_cur, R_last, t_last) onto the BA-refined keyframe
-    pose: (R_cur', t_cur', R_last', t_last', corr_R, corr_t)."""
+    pose: (R_cur', t_cur', R_last', t_last', corr_R, corr_t), its
+    rotations projected onto SO(3) (the JAX package's keyframe_step returns
+    them as the products give them)."""
     N = feat_xy.shape[0]
     octave = (feat_octave if feat_octave is not None else
               torch.zeros((N,), dtype=torch.int8, device=feat_xy.device))
@@ -568,9 +570,17 @@ def keyframe_step(st: mstate.MapState, cam, feat_xy, feat_valid, feat_desc,
     chain_out = None
     if chain is not None:
         R_cur, t_cur, R_last, t_last = chain
-        corr = lie.se3_mul(*lie.se3_inv(R, t), sless.row(st.kf_R, k),
-                           sless.row(st.kf_t, k))
-        R_c, t_c = lie.se3_mul(R_cur, t_cur, *corr)
-        R_l, t_l = lie.se3_mul(R_last, t_last, *corr)
-        chain_out = (R_c, t_c, R_l, t_l, corr[0], corr[1])
+        # corr and the chain are projected onto SO(3). Unprojected, a
+        # pipelined run's next keyframe pose (a pending frame's, which corr
+        # moved: tracking.apply_chain_correction) carries corr's error, and
+        # R^T standing in for R^-1 doubles it in that keyframe's corr:
+        # about threefold a keyframe, until an inertial run's marginalized
+        # prior turns non-finite
+        cR, ct = lie.se3_mul(*lie.se3_inv(R, t), sless.row(st.kf_R, k),
+                             sless.row(st.kf_t, k))
+        cR = lie.orthonormalize(cR)
+        R_c, t_c = lie.se3_mul(R_cur, t_cur, cR, ct)
+        R_l, t_l = lie.se3_mul(R_last, t_last, cR, ct)
+        chain_out = (lie.orthonormalize(R_c), t_c, lie.orthonormalize(R_l),
+                     t_l, cR, ct)
     return st, k, torch.sum((bind >= 0).to(torch.int32)), chain_out

@@ -246,8 +246,11 @@ def apply_chain_correction(R, t, corr_R, corr_t):
     """Right-compose a map-frame correction onto a stored pose: keeps the
     pipelined mode's rollback snapshots and deferred keyframe poses
     consistent with a re-anchored pose chain (a rollback restoring
-    pre-correction poses would undo the re-anchoring)."""
-    return lie.se3_mul(R, t, corr_R, corr_t)
+    pre-correction poses would undo the re-anchoring). The rotation is
+    projected back onto SO(3): a corrected pose becomes a keyframe's, whose
+    next correction would otherwise compound its error."""
+    R2, t2 = lie.se3_mul(R, t, corr_R, corr_t)
+    return lie.orthonormalize(R2), t2
 
 
 def _observer_keyframes(st: mstate.MapState, bind, has) -> torch.Tensor:

@@ -260,3 +260,77 @@ def test_keyframe_step_matches_jax(policy, rtol):
     assert int(tst.num_landmarks(st_t)) > n_init + (
         0 if policy["use_depth"] else -n_init // 2)
     assert int(st_t.covis.max()) > 20
+
+
+# ---------------------------------------------------------------------------
+# the pose chain stays on SO(3) (the port's repair; the JAX package's
+# keyframe_step and apply_chain_correction leave the products unprojected)
+# ---------------------------------------------------------------------------
+
+def _so3_off(R):
+    """The largest |R R^T - I| (Frobenius, float64) over a stack."""
+    R = np.asarray(N(R), np.float64).reshape(-1, 3, 3)
+    return float(np.max(np.linalg.norm(
+        R @ np.swapaxes(R, -1, -2) - np.eye(3), axis=(-2, -1))))
+
+
+def _skewed(R, rng, by=1e-3):
+    """R moved off SO(3) by a symmetric factor: |R R^T - I| ~ `by`."""
+    S = rng.randn(3, 3)
+    S = 0.5 * (S + S.T)
+    S *= 0.5 * by / np.linalg.norm(S)
+    return ((np.eye(3) + S) @ np.asarray(R, np.float64)).astype(np.float32)
+
+
+def test_apply_chain_correction_stays_on_so3():
+    """A pose and a correction each 1e-3 off SO(3): the corrected pose
+    comes back within 1e-6 of it, next to the plain product."""
+    from dani_slam_tpu_torch.slam import tracking as ttr
+    rng = np.random.RandomState(3)
+    R, t = _se3([0.1, -0.2, 0.3, 0.2, -0.1, 0.4])
+    cR, ct = _se3([0.01, 0.02, -0.03, 0.03, 0.01, -0.02])
+    Ro, cRo = _skewed(R, rng), _skewed(cR, rng)
+    assert _so3_off(Ro) > 5e-4 and _so3_off(cRo) > 5e-4
+    R2, t2 = ttr.apply_chain_correction(T(Ro), T(t), T(cRo), T(ct))
+    assert _so3_off(R2) <= 1e-6, _so3_off(R2)
+    np.testing.assert_allclose(N(R2), Ro @ cRo, atol=2e-3)
+    np.testing.assert_allclose(N(t2), Ro @ ct + t, atol=1e-6)
+
+
+def test_keyframe_chain_stays_on_so3():
+    """Four keyframe steps as a pipelined System takes them: each keyframe
+    at a pending frame's pose, which the previous keyframe's correction
+    moved (tracking.apply_chain_correction), with the tracker's chain at
+    that pose; the first correction and the first chain 1e-3 off SO(3).
+    Every keyframe rotation the map holds, every correction and every
+    re-anchored chain rotation lie within 1e-6 of SO(3). (The JAX package's
+    arithmetic keeps the first 1e-3 and grows it about threefold a
+    keyframe.)"""
+    from dani_slam_tpu_torch.slam import frame as tfr
+    from dani_slam_tpu_torch.slam import tracking as ttr
+    pts, desc, rng = _scene()
+    f0 = _frame(0, pts, desc, rng)
+    st, _, bind0, _ = ttr.build_initial_map_rgbd(
+        tst.empty_map(tst.MapCaps(**KF_CAPS), device="cpu"), CT,
+        tfr.FrameFeatures(T(f0["xy"]), T(f0["desc"]), T(f0["depth"]),
+                          T(f0["valid"]), T(f0["time"]), T(f0["octave"])), 0)
+    slot_of = {int(p): int(s) for p, s in zip(f0["ids"], N(bind0))
+               if s >= 0}
+    corr = (T(_skewed(np.eye(3), rng)), torch.zeros(3))
+    assert _so3_off(corr[0]) > 5e-4
+    offs = []
+    for fid in (1, 2, 3, 4):
+        f = _frame(fid, pts, desc, rng)
+        R, t = ttr.apply_chain_correction(T(f["R"]), T(f["t"]), *corr)
+        R_chain = T(_skewed(N(R), rng)) if fid == 1 else R
+        bind = np.int32([slot_of.get(int(p), -1) if rng.rand() < 0.7 else -1
+                         for p in f["ids"]])
+        st, k, _, chain = tmap.keyframe_step(
+            st, CT, T(f["xy"]), T(f["valid"]), T(f["desc"]), T(f["depth"]),
+            T(bind), R, t, T(f["time"]), fid, use_depth=True, do_ba=True,
+            feat_octave=T(f["octave"]), chain=(R_chain, t, R_chain, t))
+        corr = chain[4:]
+        offs.append((fid, _so3_off(st.kf_R[int(k)]), _so3_off(chain[0]),
+                     _so3_off(chain[2]), _so3_off(chain[4])))
+    assert int(tst.num_keyframes(st)) == 5
+    assert max(max(o[1:]) for o in offs) <= 1e-6, offs

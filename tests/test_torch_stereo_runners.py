@@ -28,10 +28,12 @@ card's to (STEREO_RUNNER_TARGETS), on the CPU at full size:
 writes the sequence's first 30 frames, and for seed > 0 moves a quarter of
 every image's pixels by one grey level (tests/test_torch_examples_cli.py's
 perturb_images, the method of its RUNNER_TOL), runs the JAX runner on each
-in this process and prints its numbers and their range; `port` in place of
-`targets` runs the port's runner the same way with --device cpu.
-`... drift jax|port tumvi_512 28` prints, frame by frame, how far the
-tracker's and the keyframes' rotations are from SO(3) (ROADMAP section 3).
+in this process and prints its numbers and their range. `targets` runs the
+JAX runner with the port's SO(3) repair applied from outside the package
+(repair_jax); `unrepaired` runs it as it is, and `port` runs the port's
+runner the same way with --device cpu.
+`... drift jax|jax-repaired|port tumvi_512 28` prints, frame by frame, how
+far the tracker's and the keyframes' rotations are from SO(3).
 """
 import os
 import sys
@@ -253,10 +255,53 @@ def test_build_frame_stereo_fisheye_tumvi_512(written):
 # the command line: the JAX package's runs (STEREO_RUNNER_TARGETS)
 # ---------------------------------------------------------------------------
 
+def repair_jax():
+    """The port's SO(3) repair (slam/mapping.keyframe_step,
+    slam/tracking.apply_chain_correction) applied to the JAX package at run
+    time, from outside it: the chain correction, the re-anchored tracker
+    poses and every corrected pending pose projected onto SO(3) with the
+    JAX package's own lie.orthonormalize. Without it a keyframe's pose,
+    a pending frame's that earlier corrections moved, leaves SO(3) about
+    threefold a keyframe (ROADMAP section 3). Returns a function that
+    undoes the patch."""
+    import jax
+    from dani_slam_tpu.core import lie
+    from dani_slam_tpu.slam import mapping, tracking
+    kf_step, fix = mapping.keyframe_step, tracking.apply_chain_correction
+
+    @jax.jit
+    def apply_chain_correction(R, t, corr_R, corr_t):
+        R2, t2 = lie.se3_mul(R, t, corr_R, corr_t)
+        return lie.orthonormalize(R2), t2
+
+    @jax.jit
+    def rechain(R_cur, t_cur, R_last, t_last, cR, ct):
+        cR = lie.orthonormalize(cR)
+        R_c, t_c = lie.se3_mul(R_cur, t_cur, cR, ct)
+        R_l, t_l = lie.se3_mul(R_last, t_last, cR, ct)
+        return (lie.orthonormalize(R_c), t_c, lie.orthonormalize(R_l), t_l,
+                cR, ct)
+
+    def keyframe_step(*a, chain=None, **k):
+        st, kf, n, out = kf_step(*a, chain=chain, **k)
+        if chain is not None:
+            out = rechain(*chain, *out[4:])
+        return st, kf, n, out
+
+    mapping.keyframe_step = keyframe_step
+    tracking.apply_chain_correction = apply_chain_correction
+
+    def undo():
+        mapping.keyframe_step = kf_step
+        tracking.apply_chain_correction = fix
+    return undo
+
+
 def run_runner(pkg, name, n, seed, root):
     """One run of `name`'s runner (the JAX package's script, or the port's
     with --device cpu) in this process on the first n frames, moved by
-    `seed`; the spy's numbers."""
+    `seed`; the spy's numbers. `pkg`: port, jax (the JAX package as it
+    is) or jax-repaired (with repair_jax)."""
     import runpy
     from test_torch_examples_cli import perturb_images
     spec = cs.STEREO_SEQUENCES[name]
@@ -265,20 +310,25 @@ def run_runner(pkg, name, n, seed, root):
     if seed:
         perturb_images(d, seed)
     argv = [seq["settings"], d, "--out-prefix", os.path.join(d, "out_")]
-    if pkg == "jax":
-        from dani_slam_tpu.slam import frame, system
-    else:
+    if pkg == "port":
         from dani_slam_tpu_torch.slam import frame, system
-    with cs.RunnerSpy(system.System, frame) as spy:
-        if pkg == "jax":
-            sys.argv = [spec["runner"]] + argv
-            runpy.run_path(f"{REPO}/examples/{spec['runner']}.py",
-                           run_name="__main__")
-        else:
-            import importlib
-            importlib.import_module(
-                f"dani_slam_tpu_torch.examples.{spec['runner']}").main(
-                    argv + ["--device", "cpu"])
+    else:
+        from dani_slam_tpu.slam import frame, system
+    undo = repair_jax() if pkg == "jax-repaired" else None
+    try:
+        with cs.RunnerSpy(system.System, frame) as spy:
+            if pkg == "port":
+                import importlib
+                importlib.import_module(
+                    f"dani_slam_tpu_torch.examples.{spec['runner']}").main(
+                        argv + ["--device", "cpu"])
+            else:
+                sys.argv = [spec["runner"]] + argv
+                runpy.run_path(f"{REPO}/examples/{spec['runner']}.py",
+                               run_name="__main__")
+    finally:
+        if undo is not None:
+            undo()
     return spy.summary(seq)
 
 
@@ -292,7 +342,7 @@ def runner_targets(pkg, name, n, seeds):
         r["seed"] = seed
         runs.append(r)
         print(json.dumps(r), flush=True)
-    keys = ("tracked", "kf", "lm", "ate", "init", "features")
+    keys = ("tracked", "poses", "kf", "lm", "ate", "init", "features")
     print(pkg, name, n, "ranges", {k: (min(r[k] for r in runs),
                                        max(r[k] for r in runs))
                                    for k in keys
@@ -300,18 +350,21 @@ def runner_targets(pkg, name, n, seeds):
           flush=True)
 
 
-def rotation_drift(pkg, name, n):
-    """The runner of `pkg` (jax or port) on the first n frames, printing
-    after every frame how far the tracker's rotation and the keyframes'
-    are from SO(3), |R R^T - I| (ROADMAP section 3: after the IMU
-    initialization it grows about threefold a keyframe in both packages)."""
+def rotation_drift(pkg, name, n, root=None):
+    """The runner of `pkg` (jax, jax-repaired or port) on the first n
+    frames, printing after every frame how far the tracker's rotation and
+    the keyframes' are from SO(3), |R R^T - I| (Frobenius). In the JAX
+    package as it is, it grows about threefold a keyframe once keyframes
+    come faster than the pipeline resolves them (ROADMAP section 3); with
+    the repair it stays at float32 rounding. Returns ([(frame, IMU
+    initialized, tracker's, keyframes' largest)], the run's numbers)."""
     import tempfile
-    if pkg == "jax":
-        from dani_slam_tpu.slam import system
-    else:
+    if pkg == "port":
         from dani_slam_tpu_torch.slam import system
+    else:
+        from dani_slam_tpu.slam import system
     orig = system.System.track_features
-    frame = [0]
+    rows = []
 
     def off(R):
         R = np.asarray(R, np.float64)
@@ -321,23 +374,44 @@ def rotation_drift(pkg, name, n):
         out = orig(self, *a, **k)
         tr = self.tracker
         kf = np.asarray(tr.st.kf_mask)
-        print(f"frame {frame[0]}: IMU initialized "
-              f"{tr.inertial.initialized}, tracker R {off(tr.R):.2e}, "
-              f"keyframes' R at most "
-              f"{max(off(R) for R in np.asarray(tr.st.kf_R)[kf]):.2e}, "
-              f"{int(kf.sum())} keyframes", flush=True)
-        frame[0] += 1
+        rows.append((len(rows), tr.inertial.initialized, off(tr.R),
+                     max(off(R) for R in np.asarray(tr.st.kf_R)[kf])))
+        print(f"frame {rows[-1][0]}: IMU initialized {rows[-1][1]}, "
+              f"tracker R {rows[-1][2]:.2e}, keyframes' R at most "
+              f"{rows[-1][3]:.2e}, {int(kf.sum())} keyframes", flush=True)
         return out
 
     system.System.track_features = track_features
-    print(run_runner(pkg, name, n, 0, tempfile.mkdtemp()), flush=True)
+    try:
+        run = run_runner(pkg, name, n, 0, root or tempfile.mkdtemp())
+    finally:
+        system.System.track_features = orig
+    print(run, flush=True)
+    return rows, run
+
+
+@pytest.mark.slow
+def test_tumvi_rotations_stay_on_so3(tmp_path):
+    """The port's TUM-VI stereo-inertial runner on 28 frames of tumvi_512
+    (the IMU initialized at frame 11): on every frame from the
+    initialization on, the tracker's rotation and every keyframe's within
+    1e-4 of SO(3), and the run ends. (Before the keyframe chain was kept
+    on SO(3) the drift reached 1.5 by frame 27, and on the card an eigh of
+    the then non-finite marginalized prior raised 15 frames after the
+    initialization.)"""
+    rows, run = rotation_drift("port", "tumvi_512", 28, str(tmp_path))
+    after = [r for r in rows if r[1]]
+    assert run["init"] is not None and len(after) == 28 - run["init"]
+    assert len(after) >= 15, run
+    assert max(max(r[2], r[3]) for r in after) <= 1e-4, after
+    assert run["tracked"] >= 25 and np.isfinite(run["ate"]), run
 
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    if sys.argv[1] in ("targets", "port"):   # targets NAME FRAMES SEEDS
-        runner_targets("jax" if sys.argv[1] == "targets" else "port",
-                       sys.argv[2], int(sys.argv[3]),
+    runs = {"targets": "jax-repaired", "unrepaired": "jax", "port": "port"}
+    if sys.argv[1] in runs:                  # targets NAME FRAMES SEEDS
+        runner_targets(runs[sys.argv[1]], sys.argv[2], int(sys.argv[3]),
                        [int(x) for x in sys.argv[4:]])
-    elif sys.argv[1] == "drift":             # drift jax|port NAME FRAMES
+    elif sys.argv[1] == "drift":    # drift jax|jax-repaired|port NAME FRAMES
         rotation_drift(sys.argv[2], sys.argv[3], int(sys.argv[4]))
